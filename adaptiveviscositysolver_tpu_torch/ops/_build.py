@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -51,43 +51,24 @@ def library_path(stem: str) -> Path:
     return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
-def _start(stem: str) -> Optional[subprocess.Popen]:
+def build(stem: str = "fused_apply") -> dict:
+    """Compile ``stem``'s library unless it is already built.  Returns
+    ``{"seconds", "cached", "log"}``; raises if ``nvcc`` fails."""
     out = library_path(stem)
     if out.exists():
         build_log[stem] = {"seconds": 0.0, "cached": True, "log": ""}
-        return None
+        return build_log[stem]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", str(tmp), str(CSRC / SOURCES[stem][0])]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    proc.avs_tmp, proc.avs_out, proc.avs_t0 = tmp, out, time.perf_counter()
-    return proc
-
-
-def _finish(stem: str, proc: Optional[subprocess.Popen]) -> None:
-    if proc is None:
-        return
-    log, _ = proc.communicate()
-    seconds = time.perf_counter() - proc.avs_t0
-    build_log[stem] = {"seconds": seconds, "cached": False, "log": log}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    build_log[stem] = {"seconds": time.perf_counter() - t0, "cached": False, "log": log}
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {stem} (exit {proc.returncode}):\n{log}")
-    os.replace(proc.avs_tmp, proc.avs_out)
-
-
-def build_all() -> Dict[str, dict]:
-    """Compile every missing library, one ``nvcc`` per source, all started
-    together.  Returns ``{stem: {"seconds", "cached", "log"}}``."""
-    procs = {stem: _start(stem) for stem in SOURCES}
-    try:
-        for stem, proc in procs.items():
-            _finish(stem, proc)
-    finally:
-        for proc in procs.values():
-            if proc is not None and proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    return {stem: build_log[stem] for stem in SOURCES}
+    os.replace(tmp, out)
+    return build_log[stem]
 
 
 def load(stem: str = "fused_apply") -> ctypes.CDLL:
@@ -95,7 +76,7 @@ def load(stem: str = "fused_apply") -> ctypes.CDLL:
     lib = _loaded.get(stem)
     if lib is not None:
         return lib
-    _finish(stem, _start(stem))
+    build(stem)
     lib = ctypes.CDLL(str(library_path(stem)))
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.avs_frame_bytes.argtypes = []

@@ -4,7 +4,7 @@
 Layout, the "canonical embedding": every per-level grid (face, edge or cell
 sampled, any axis) is embedded in one shared box per level,
 
-    canonical[x + 4, y + 4, z + 4] = logical[org + (x, y, z)]
+    canonical[x + PAD, y + PAD, z + PAD] = logical[org + (x, y, z)]
 
 with even pads and even crop origins, so logical parity equals canonical
 parity and the parity-dependent stencil cases (enhanced siblings, dangling
@@ -39,11 +39,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .arrayops import face_shape, gather_offset, transverse_blocksum, upread
+from .arrayops import (edge_shape, face_shape, gather_offset, node_shape, transverse_blocksum,
+                       upread)
 
 F32 = torch.float32
 KIND_DT = torch.int8
-PAD = 4          # low-side pad of every canonical axis (even)
+# Low-side pad of every canonical axis.  Every read is bounds-checked (kinds
+# read OUTSIDE, values 0 past the box), so the pad only has to hold what the
+# apply WRITES past the window that still matters: the unmasked zp/zc of a
+# face one row below a stress sample (D^T terms at s - off, |off| <= 1 per
+# axis); `out` there is masked to 0 anyway.  Reach 1, rounded up to even so
+# that canonical parity stays logical parity.  The high side gets the same
+# pad past the closing face row.
+PAD = 2
 PACK_FILL = 63   # OUTSIDE (code 3) in every 2-bit slot
 
 UField = Dict[Tuple[int, int], torch.Tensor]
@@ -63,6 +71,7 @@ class Canon:
 
     res: Tuple[int, int, int]    # cell resolution of the level (full grid)
     shape: Tuple[int, int, int]  # canonical array shape (even extents)
+    win: Tuple[int, int, int]    # cell extents of the window (res if uncropped)
     org: Tuple[int, int, int] = (0, 0, 0)
 
     @property
@@ -78,8 +87,8 @@ class Canon:
 def make_canon(res: Sequence[int], bbox=None) -> Canon:
     """Box for a level of resolution ``res``, optionally cropped to ``bbox``
     (((x0, x1), (y0, y1), (z0, z1)) cell ranges, each lo even).  The box
-    covers the window's cells plus the staggered closing row, a pad of 4 on
-    each side, rounded up to even extents."""
+    covers the window's cells plus the staggered closing row, a pad of
+    ``PAD`` on each side, rounded up to even extents."""
     if bbox is not None:
         org = tuple(int(b[0]) for b in bbox)
         for d, b in enumerate(bbox):
@@ -92,7 +101,7 @@ def make_canon(res: Sequence[int], bbox=None) -> Canon:
         org = (0, 0, 0)
         ext = list(res)
     shape = tuple(-(-(n + 1 + 2 * PAD) // 2) * 2 for n in ext)
-    return Canon(tuple(int(r) for r in res), shape, org)
+    return Canon(tuple(int(r) for r in res), shape, tuple(ext), org)
 
 
 def embed(arr: torch.Tensor, canon: Canon, fill=0) -> torch.Tensor:
@@ -250,6 +259,7 @@ class LevelMeta:
     dxw: float
     has_parent: bool
     has_child: bool
+    win: Tuple[int, int, int]    # cell extents of the level's window
 
 
 def _sh(x: torch.Tensor, off, fill=0.0) -> torch.Tensor:
@@ -554,31 +564,44 @@ def fused_dt(levels: Sequence[Dict[str, torch.Tensor]], taus: Sequence[Dict[str,
     return res
 
 
+def _window_counts(m: LevelMeta):
+    """Logical samples of one level's window: (face, edge, cell, node)
+    counts, face and edge summed over the three axes."""
+    w = m.win
+    face = sum(int(np.prod(face_shape(w, f))) for f in range(3))
+    edge = sum(int(np.prod(edge_shape(w, a))) for a in range(3))
+    return face, edge, int(np.prod(w)), int(np.prod(node_shape(w)))
+
+
 def kernel_bytes(metas: Sequence[LevelMeta]) -> Dict[str, int]:
-    """Device-memory bytes each kernel must move at these shapes: every
-    input read once, every output written once."""
+    """Device-memory bytes each kernel must move at these windows: every
+    input read once and every output written once, over each level's
+    logical window (its cells plus the closing face row), not the padded
+    canonical box, whose pad cells hold only zeros and OUTSIDE kinds that
+    the kernels also get from their bounds checks.  Each packed kind byte
+    covers the window's node box (face, edge and cell grids together)."""
     tau_b = dt_b = 0
     for m in metas:
-        n = int(np.prod(m.shape))
-        nkp = 4 if m.has_parent else 3
-        f32_in = 3 + (3 if m.has_parent else 0) + (3 if m.has_child else 0) + 4
-        tau_b += n * (4 * f32_in + nkp + 4 * 6)
-        n_out = 3 + (3 if m.has_parent else 0) + (3 if m.has_child else 0)
-        dt_b += n * (4 * (6 + 3 + 3) + nkp + 4 * n_out)
+        face, edge, cell, node = _window_counts(m)
+        kinds = (4 if m.has_parent else 3) * node
+        views = int(m.has_parent) + int(m.has_child)     # up, cs inputs
+        # tau: u (+ up, cs), we, wc, kinds in; wte, wtc out
+        tau_b += 4 * face * (1 + views) + 4 * (edge + cell) + kinds + 4 * (edge + 3 * cell)
+        # D^T: wte, wtc, u, m, kinds in; out (+ zp, zc) out
+        dt_b += 4 * (edge + 3 * cell) + 4 * 2 * face + kinds + 4 * face * (1 + views)
     return {"fused_tau": tau_b, "fused_dt": dt_b}
 
 
 def kernel_flops(metas: Sequence[LevelMeta], enhanced: bool) -> Dict[str, int]:
-    """Floating-point operations of the term algebra at these shapes: one
-    multiply-add per stencil term and sample in each pass (the coefficient
-    rebuild from the kinds is not counted)."""
+    """Floating-point operations of the term algebra over the same windows:
+    one multiply-add per stencil term and stress sample in each pass (the
+    coefficient rebuild from the kinds is not counted)."""
     tau_f = 0
     for m in metas:
-        n = int(np.prod(m.shape))
+        _, edge, cell, _ = _window_counts(m)
         per_slot = 1 + (2 if enhanced else 0) + (5 if m.has_parent else 0)
-        edge_terms = 3 * 2 * 2 * per_slot
-        center_terms = 3 * 2 * (2 if m.has_child else 1)
-        tau_f += 2 * n * (edge_terms + center_terms)
+        # edge axis a: 2 face axes x 2 slots per sample; center: 3 components x 2 slots
+        tau_f += 2 * (edge * 2 * 2 * per_slot + cell * 3 * 2 * (2 if m.has_child else 1))
     return {"fused_tau": tau_f, "fused_dt": tau_f}
 
 
@@ -589,8 +612,8 @@ def kernel_flops(metas: Sequence[LevelMeta], enhanced: bool) -> Dict[str, int]:
 
 def level_metas(canons: Sequence[Canon], dx: float) -> List[LevelMeta]:
     levels = len(canons)
-    return [LevelMeta(l, tuple(canons[l].shape), dx * (1 << l), l + 1 < levels, l > 0)
-            for l in range(levels)]
+    return [LevelMeta(l, tuple(canons[l].shape), dx * (1 << l), l + 1 < levels, l > 0,
+                      canons[l].win) for l in range(levels)]
 
 
 def _plain_tau(levels, metas, enhanced):

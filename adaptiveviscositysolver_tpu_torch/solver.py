@@ -121,8 +121,10 @@ def _pad_state(state: FluidState, target: Sequence[int]) -> FluidState:
 
 
 class _StageClock:
-    """Per-stage wall times: synchronizes the device at each boundary, so it
-    is only switched on when the caller asks for the times."""
+    """Per-stage ranges: always a ``torch.profiler.record_function`` span
+    (a few microseconds, no sync; a profiler trace reads the stages off
+    it), and wall times when the caller asks for them, which synchronizes
+    the device at each boundary."""
 
     def __init__(self, out: Optional[Dict[str, float]], device: torch.device):
         self.out = out
@@ -130,6 +132,12 @@ class _StageClock:
 
     @contextlib.contextmanager
     def __call__(self, name: str):
+        with torch.profiler.record_function(name):
+            with self._timed(name):
+                yield
+
+    @contextlib.contextmanager
+    def _timed(self, name: str):
         if self.out is None:
             yield
             return

@@ -21,6 +21,9 @@ Phases (one line each, elapsed seconds first):
                 hardware-independent counts (3 levels, 186836 octree DOFs,
                 284564 regular DOFs, 203 +- 2 CG iterations); a small frame
                 is checked against the whole-array float64 solve
+  4 trace    -- torch.profiler trace of one more warm frame: device idle
+                share of the frame and of each stage (the stages are
+                record_function spans), device time per op in the CG
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``.  Every failed check raises; the whole
@@ -79,6 +82,43 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def busy_us(intervals, lo, hi):
+    """Microseconds of [lo, hi) covered by at least one (start, end)."""
+    busy, end = 0.0, lo
+    for s, e in sorted(intervals):
+        s, e = max(s, end), min(e, hi)
+        if e > s:
+            busy += e - s
+        end = max(end, e)
+    return busy
+
+
+def trace_frame(solve, state, dt, path):
+    """One frame under torch.profiler; returns (result, {span name: (start,
+    end)} of the host-side record_function spans, [(start, end, name)] of
+    the device's kernels, copies and fills), in trace microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("frame"):
+            res = solve(state, dt)
+            torch.cuda.synchronize()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and "dur" in e}
+    device_events = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("cat") in DEVICE_CATS and "dur" in e]
+    return res, spans, device_events
+
+
 def max_rel_err(pairs):
     """(max abs error, worst error / max|want|) over (got, want) pairs,
     asserting each pair within TOL * max|want|."""
@@ -119,7 +159,7 @@ def main():
 
     # ---- 1 build
     t = time.perf_counter()
-    builds = _build.build_all()
+    builds = {stem: _build.build(stem) for stem in _build.SOURCES}
     build_s = time.perf_counter() - t
     for stem, info in builds.items():
         regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
@@ -227,6 +267,59 @@ def main():
                  f"{statistics.median(warm):.2f} ms | stages (synchronized) "
                  + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in stages.items())
                  + f" | CG {st.iterations} iterations, {st.applies} applies | {smi}")
+
+    # ---- 4 trace of one warm frame: where the device waits
+    from pathlib import Path
+
+    trace_path = Path(_build.BUILD_DIR).parent / "torch_trace" / "warm_frame.json"
+    r, spans, events = trace_frame(solve, state, dt, trace_path)
+    assert r.stats.iterations == st.iterations
+    # the profiler slows the host about 2x, so idle shares under it overstate
+    # the unprofiled run's; the *_unprofiled shares divide the traced device
+    # time by the unprofiled walls (warm-frame median, synchronized CG stage)
+    trace = {"frame_wall_ms": None, "frame_device_ms": None, "frame_idle_share": None,
+             "frame_idle_share_unprofiled": None, "cg_idle_share_unprofiled": None,
+             "stages": {}, "cg_top_ops": []}
+    if not events:
+        log("trace", "the trace holds no device events: device idle share not measured")
+    else:
+        lo, hi = spans["frame"]
+        busy = busy_us([(a, b) for a, b, _ in events], lo, hi)
+        trace.update(frame_wall_ms=(hi - lo) / 1e3, frame_device_ms=busy / 1e3,
+                     frame_idle_share=1.0 - busy / (hi - lo))
+        for name in stages:
+            slo, shi = spans[name]
+            sb = busy_us([(a, b) for a, b, _ in events], slo, shi)
+            trace["stages"][name] = {"wall_ms": (shi - slo) / 1e3, "device_ms": sb / 1e3,
+                                     "idle_share": 1.0 - sb / max(shi - slo, 1e-9),
+                                     "device_ops": sum(1 for a, _, _ in events if slo <= a < shi)}
+        slo, shi = spans["solve"]
+        per_op = {}
+        for a, b, name in events:
+            if slo <= a < shi:
+                key = name if len(name) <= 60 else name[:57] + "..."
+                n, t_us = per_op.get(key, (0, 0.0))
+                per_op[key] = (n + 1, t_us + (b - a))
+        trace["cg_top_ops"] = [
+            {"op": k, "launches": n, "device_ms": t_us / 1e3}
+            for k, (n, t_us) in sorted(per_op.items(), key=lambda kv: -kv[1][1])[:10]]
+        cg = trace["stages"]["solve"]
+        trace["frame_idle_share_unprofiled"] = 1.0 - busy / 1e3 / statistics.median(warm)
+        trace["cg_idle_share_unprofiled"] = 1.0 - cg["device_ms"] / (stages["solve"] * 1e3)
+        log("trace", f"frame {trace['frame_wall_ms']:.2f} ms wall under the profiler, device busy "
+                     f"{trace['frame_device_ms']:.2f} ms, idle share {trace['frame_idle_share']:.3f} "
+                     f"| CG stage {cg['wall_ms']:.2f} ms wall, {cg['device_ms']:.2f} ms device, "
+                     f"idle share {cg['idle_share']:.3f}, {cg['device_ops'] / st.iterations:.1f} "
+                     f"device ops per iteration | against the unprofiled walls: frame idle share "
+                     f"{trace['frame_idle_share_unprofiled']:.3f}, CG "
+                     f"{trace['cg_idle_share_unprofiled']:.3f} | {smi}")
+        for name, v in trace["stages"].items():
+            log("trace", f"stage {name}: wall {v['wall_ms']:.3f} ms, device {v['device_ms']:.3f} "
+                         f"ms, idle share {v['idle_share']:.3f}, {v['device_ops']} device ops")
+        for op in trace["cg_top_ops"]:
+            log("trace", f"CG op {op['op']}: {op['launches']} launches, "
+                         f"{op['device_ms']:.3f} ms device")
+    print(json.dumps({"trace": trace}), flush=True)
 
     # small frame: the kernel path against the whole-array float64 solve
     small = scenes.buckling(n=32, device=dev)

@@ -15,6 +15,7 @@ stencils are also held to the JAX ones here, on every fixture (rtol 1e-12).
 """
 
 import ctypes
+import dataclasses
 import re
 import shutil
 import subprocess
@@ -306,11 +307,30 @@ def test_glue_matches_logical_maps(f):
 
 
 def test_wrappers_take_the_plain_version_only_on_cpu():
-    meta = fa.LevelMeta(0, (4, 4, 4), 0.5, False, False)
+    meta = fa.LevelMeta(0, (4, 4, 4), 0.5, False, False, (3, 3, 3))
     args = {n: torch.zeros(meta.shape, dtype=torch.int8 if n.startswith("kp") else F32,
                            device="meta") for n in fa.level_input_names(meta)}
     with pytest.raises(ValueError):
         fa.fused_tau([args], [meta], True)
+
+
+def test_kernel_bytes_count_the_logical_window():
+    """The byte bound counts each level's window (cells + closing face
+    row), whatever the canonical pad: one uncropped 4^3 level by hand, and a
+    cropped two-level pair below the same pair uncropped."""
+    (meta,) = fa.level_metas([fa.make_canon((4, 4, 4))], 0.5)
+    assert meta.win == (4, 4, 4) and meta.shape != meta.win
+    face, edge, cell, node = 3 * 5 * 16, 3 * 4 * 25, 64, 125
+    assert fa.kernel_bytes([meta]) == {
+        "fused_tau": 4 * face + 4 * (edge + cell) + 3 * node + 4 * (edge + 3 * cell),
+        "fused_dt": 4 * (edge + 3 * cell) + 8 * face + 3 * node + 4 * face}
+    canons = [fa.make_canon((16, 16, 16), ((2, 12), (4, 16), (0, 10))),
+              fa.make_canon((8, 8, 8), ((0, 6), (2, 8), (0, 6)))]
+    metas = fa.level_metas(canons, 0.5)
+    assert [m.win for m in metas] == [(10, 12, 10), (6, 6, 6)]
+    both = fa.kernel_bytes(metas)
+    assert all(both[k] < fa.kernel_bytes([dataclasses.replace(m, win=(16 >> m.level,) * 3)
+                                          for m in metas])[k] for k in both)
 
 
 def test_descriptor_layout_matches_header():

@@ -108,6 +108,53 @@ def test_make_solver_trims_and_crops():
         assert float((got.velocity[a] - want.velocity[a]).abs().max()) / scale < 5e-4
 
 
+def trimmed_cropped_case(n=24):
+    """A beam-like slab anchored to a wall: a 4-level solve trims to 2
+    levels, and both levels' windows start away from the origin."""
+    from adaptiveviscositysolver_tpu.scenes import _box_sdf
+
+    rng = np.random.default_rng(0)
+    dx = 1.0 / n
+    x = (np.arange(n) + 0.5) * dx
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    fs = [tuple(n + (d == a) for d in range(3)) for a in range(3)]
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return dict(n=n, dx=dx, dt=0.01,
+                liquid=f32(_box_sdf(X, Y, Z, (0.05, 0.5, 0.25), (0.7, 0.95, 0.75))),
+                solid=f32(X - 0.08), viscosity=f32(1.0 + 0.5 * X), density=f32(1.0 + 0.3 * Z),
+                regular_vel=[f32(rng.normal(size=s)) for s in fs],
+                solid_vel=[np.zeros(s, np.float32) for s in fs])
+
+
+def test_make_solver_matches_jax_make_solver():
+    """The port's make_solver (level trim, pad to the configured level
+    count, crop windows, fused apply through the kernels' plain version)
+    vs the JAX make_solver's first frame on the same float32 inputs."""
+    from adaptiveviscositysolver_tpu.solver import make_solver as jmake_solver
+    from adaptiveviscositysolver_tpu.solver import probe_topology as jprobe
+
+    case = trimmed_cropped_case()
+    jcfg = JConfig(octree_levels=4, tolerance=1e-5, dtype=jax.numpy.float32)
+    cfg = SolverConfig(octree_levels=4, tolerance=1e-5, dtype=torch.float32, apply_impl="cuda")
+    lv, windows = solver.probe_topology(port_state(case), cfg, device="cpu")
+    assert (lv, windows) == jprobe(state_from_case(case), jcfg)
+    assert lv == 2 and all(w[1][0] > 0 for w in windows)
+    want = jmake_solver(jcfg, async_probe=False)(state_from_case(case), case["dt"])
+    got = solver.make_solver(cfg, device="cpu")(port_state(case), case["dt"])
+    assert got.stats.solve_path == "cuda-plain"
+    assert list(got.stats.active_cells) == [int(c) for c in want.stats.active_cells]
+    assert got.stats.octree_dofs == int(want.stats.octree_dofs)
+    assert got.stats.regular_dofs == int(want.stats.regular_dofs)
+    assert abs(got.stats.iterations - int(want.stats.iterations)) <= 2
+    assert got.stats.residual <= 1e-5
+    scale = max(float(np.abs(np.asarray(v)).max()) for v in want.velocity)
+    for a in range(3):
+        g = N(got.velocity[a]).astype(np.float64)
+        w = np.asarray(want.velocity[a], np.float64)
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() / scale < 5e-4, a
+
+
 @pytest.mark.gpu
 def test_solve_on_card_matches_cpu():
     """The slice on the card (hand-written kernels) vs the same solve on the
