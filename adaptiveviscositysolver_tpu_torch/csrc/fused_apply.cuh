@@ -15,6 +15,16 @@
 // so every output is written by exactly one thread: no atomics, and the
 // result does not depend on the launch order.
 //
+// The weighted stresses need not span the whole box: wte/wtc hold the x
+// rows [tau_x0, tau_x0 + tau_nx) only (a brick of the level plus its
+// halo, or the whole level), and every thread of a launch maps to a sample
+// of the x rows starting at row0 (sample_of).  That lets one level run as
+// a per-level tau/D^T pair ("split") or brick by brick over a bounded tau
+// scratch ("brick"), as well as in the all-level launches.  tau_point and
+// dt_point take kWhole = true where wte/wtc span the whole box (the
+// all-level launches: plain box addressing) and false for the level
+// launches (addressing from tau_x0).
+//
 // Reads outside the box return 0 (values) or OUTSIDE (kinds, code 3).
 // Kind grids arrive bit-packed, three 2-bit codes (code = -kind) per byte:
 //   group 0: vk0 vk1 vk2 | group 1: ek0 ek1 ek2 | group 2: ck pk0 pk1 | group 3: pk2
@@ -51,7 +61,8 @@ struct AvsLevel {
   long long start, count;   // first thread and thread count of this level
   long long has_parent, has_child;
   double inv_dxw;           // 1 / (dx * 2^level)
-  long long reserved;
+  long long row0;           // first x row of the samples the launch covers
+  long long tau_x0, tau_nx; // x rows [tau_x0, tau_x0 + tau_nx) held by wte/wtc
 };
 
 struct AvsFrame {
@@ -86,6 +97,27 @@ AVS_HD int pk(const AvsLevel& L, int f, const int p[3]) {
 
 AVS_HD float val(const float* a, const AvsLevel& L, const int p[3]) {
   return inside(L, p[0], p[1], p[2]) ? a[lin(L, p[0], p[1], p[2])] : 0.0f;
+}
+
+// Index of sample p in wte/wtc, whose first row is x row tau_x0.
+AVS_HD long long tau_lin(const AvsLevel& L, const int p[3]) {
+  return ((long long)(p[0] - L.tau_x0) * L.cy + p[1]) * L.cz + p[2];
+}
+
+// A weighted stress at p: 0 outside the rows held and outside the box (the
+// rows held lie inside the box, so their test is the box's x test; the
+// caller's halo keeps the rows D^T needs inside them, see tau_rows in
+// ops/fused_apply.py).
+AVS_HD float tau_val(const float* a, const AvsLevel& L, const int p[3]) {
+  return p[0] >= L.tau_x0 && p[0] < L.tau_x0 + L.tau_nx && p[1] >= 0 && p[2] >= 0 &&
+                 p[1] < L.cy && p[2] < L.cz
+             ? a[tau_lin(L, p)]
+             : 0.0f;
+}
+
+template <bool kWhole>
+AVS_HD float wval(const float* a, const AvsLevel& L, const int p[3]) {
+  return kWhole ? val(a, L, p) : tau_val(a, L, p);
 }
 
 AVS_HD float flag(bool b) { return b ? 1.0f : 0.0f; }
@@ -140,9 +172,11 @@ AVS_HD Plane edge_plane(const AvsLevel& L, int a, int f, int d, const int s[3],
 
 // Weighted stresses at stress sample s: wte[a] = we[a] * (D u)_edge,a and
 // wtc[x] = wc * (D u)_center,x.
+template <bool kWhole = true>
 AVS_HD void tau_point(const AvsLevel& L, const int s[3], bool enhanced) {
   const float inv = (float)L.inv_dxw;
   const long long i = lin(L, s[0], s[1], s[2]);
+  const long long it = kWhole ? i : tau_lin(L, s);
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     float tau = 0.0f;
@@ -182,7 +216,7 @@ AVS_HD void tau_point(const AvsLevel& L, const int s[3], bool enhanced) {
         }
       }
     }
-    L.wte[a][i] = L.we[a][i] * tau;
+    L.wte[a][it] = L.we[a][i] * tau;
   }
   // center stresses (C1, C2)
   const float act_c = flag(ck(L, s) == 0);
@@ -199,7 +233,7 @@ AVS_HD void tau_point(const AvsLevel& L, const int s[3], bool enhanced) {
       if (L.has_child)
         tau += flag(k == 1) * act_c * (0.25f * sign * inv) * val(L.cs[x], L, sp);
     }
-    L.wtc[x][i] = L.wc[i] * tau;
+    L.wtc[x][it] = L.wc[i] * tau;
   }
 }
 
@@ -207,6 +241,7 @@ AVS_HD void tau_point(const AvsLevel& L, const int s[3], bool enhanced) {
 // v is visited and its coefficient rebuilt there.  out[f] is masked to FLUID
 // faces and carries the mass term; zp/zc stay unmasked (the caller masks
 // them at the cross-level add).
+template <bool kWhole = true>
 AVS_HD void dt_point(const AvsLevel& L, const int v[3], bool enhanced) {
   const float inv = (float)L.inv_dxw;
   const long long i = lin(L, v[0], v[1], v[2]);
@@ -224,7 +259,7 @@ AVS_HD void dt_point(const AvsLevel& L, const int v[3], bool enhanced) {
         if (d == 0) s[g] += 1;
         {
           const Plane P = edge_plane(L, a, f, d, s, enhanced, inv);
-          const float w = val(wte, L, s);
+          const float w = wval<kWhole>(wte, L, s);
           acc += (enhanced ? 0.5f * P.q - 0.25f * P.e : 0.5f * P.q) * w;
           if (L.has_parent) {
             const float dang = flag((s[f] & 1) != 0);
@@ -237,10 +272,10 @@ AVS_HD void dt_point(const AvsLevel& L, const int v[3], bool enhanced) {
           int q[3] = {s[0], s[1], s[2]};
           q[a] -= 1;
           Plane P = edge_plane(L, a, f, d, q, enhanced, inv);
-          acc += 0.25f * P.e * flag((q[a] & 1) == 0) * val(wte, L, q);
+          acc += 0.25f * P.e * flag((q[a] & 1) == 0) * wval<kWhole>(wte, L, q);
           q[a] += 2;
           P = edge_plane(L, a, f, d, q, enhanced, inv);
-          acc += 0.25f * P.e * flag((q[a] & 1) != 0) * val(wte, L, q);
+          acc += 0.25f * P.e * flag((q[a] & 1) != 0) * wval<kWhole>(wte, L, q);
         }
         if (L.has_parent) {
           const int kpv = pk(L, f, v);
@@ -252,7 +287,7 @@ AVS_HD void dt_point(const AvsLevel& L, const int v[3], bool enhanced) {
             q[f] -= so;
             if (kpv == 0) {
               const Plane P = edge_plane(L, a, f, d, q, enhanced, inv);
-              zp += P.un * flag((q[f] & 1) != 0) * 0.25f * val(wte, L, q);
+              zp += P.un * flag((q[f] & 1) != 0) * 0.25f * wval<kWhole>(wte, L, q);
             }
             // T5 -> out: every p of v's transverse 2x2 block, from stress
             // p + (s - v) - so*e_f, when the parent face kind at p is
@@ -267,7 +302,7 @@ AVS_HD void dt_point(const AvsLevel& L, const int v[3], bool enhanced) {
               int r[3] = {p[0] + s[0] - v[0], p[1] + s[1] - v[1], p[2] + s[2] - v[2]};
               r[f] -= so;
               const Plane P = edge_plane(L, a, f, d, r, enhanced, inv);
-              acc += P.un * flag((r[f] & 1) != 0) * 0.0625f * val(wte, L, r);
+              acc += P.un * flag((r[f] & 1) != 0) * 0.0625f * wval<kWhole>(wte, L, r);
             }
           }
         }
@@ -281,7 +316,7 @@ AVS_HD void dt_point(const AvsLevel& L, const int v[3], bool enhanced) {
       int s[3] = {v[0], v[1], v[2]};
       s[f] -= d;
       const float act_c = flag(ck(L, s) == 0);
-      const float w = val(L.wtc[f], L, s);
+      const float w = wval<kWhole>(L.wtc[f], L, s);
       acc += flag(kv == 0) * act_c * (sign * inv) * w;
       if (L.has_child) zc += flag(kv == 1) * act_c * (0.25f * sign * inv) * w;
     }
@@ -291,16 +326,20 @@ AVS_HD void dt_point(const AvsLevel& L, const int v[3], bool enhanced) {
   }
 }
 
-// Level of global thread gid and its position in that level's box.
+// Sample of thread t of a launch over one level's x rows from row0 on
+// (z fastest, then y, then x).
+AVS_HD void sample_of(const AvsLevel& L, long long t, int p[3]) {
+  p[2] = (int)(t % L.cz);
+  t /= L.cz;
+  p[1] = (int)(t % L.cy);
+  p[0] = (int)(L.row0 + t / L.cy);
+}
+
+// Level of global thread gid of an all-level launch, and its sample.
 AVS_HD int locate(const AvsFrame& F, long long gid, int p[3]) {
   int l = 0;
   while (l + 1 < F.levels && gid >= F.lv[l + 1].start) ++l;
-  const AvsLevel& L = F.lv[l];
-  long long r = gid - L.start;
-  p[2] = (int)(r % L.cz);
-  r /= L.cz;
-  p[1] = (int)(r % L.cy);
-  p[0] = (int)(r / L.cy);
+  sample_of(F.lv[l], gid - F.lv[l].start, p);
   return l;
 }
 

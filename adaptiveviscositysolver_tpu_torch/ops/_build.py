@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds) under
 ``build/torch_kernels/`` at the repository root, at first use, and loaded
-with ``ctypes``.  The library name carries a hash of the sources and flags,
+with ``ctypes``.  Several sources build in parallel: one ``nvcc`` each,
+all started together.  The library name carries a hash of the sources and flags,
 so an edited source is rebuilt and a stale library is never loaded.
 Nothing here runs at import time.
 """
@@ -26,7 +27,13 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
                            "-Xptxas", "-v"]
 
 # library stem -> (main source, headers it includes)
-SOURCES = {"fused_apply": ("fused_apply.cu", ("fused_apply.cuh",))}
+SOURCES = {"fused_apply": ("fused_apply.cu", ("fused_apply.cuh",)),
+           "level_apply": ("level_apply.cu", ("fused_apply.cuh",))}
+# library stem -> (entry points taking (descriptor, threads, stream) or
+# (descriptor, threads, enhanced, stream), layout probe)
+_ENTRIES = {"fused_apply": (("avs_tau_launch", "avs_dt_launch"), (), "avs_frame_bytes"),
+            "level_apply": ((), ("avs_tau_level_launch", "avs_dt_level_launch"),
+                            "avs_level_bytes")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, dict] = {}
@@ -51,24 +58,33 @@ def library_path(stem: str) -> Path:
     return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(stem: str = "fused_apply") -> dict:
-    """Compile ``stem``'s library unless it is already built.  Returns
-    ``{"seconds", "cached", "log"}``; raises if ``nvcc`` fails."""
-    out = library_path(stem)
-    if out.exists():
-        build_log[stem] = {"seconds": 0.0, "cached": True, "log": ""}
-        return build_log[stem]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", str(tmp), str(CSRC / SOURCES[stem][0])]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    build_log[stem] = {"seconds": time.perf_counter() - t0, "cached": False, "log": log}
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {stem} (exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return build_log[stem]
+def build(*stems: str) -> Dict[str, dict]:
+    """Compile the libraries of ``stems`` (default: all) that are not built
+    yet, one ``nvcc`` per source, all started together.  Returns ``{stem:
+    {"seconds", "cached", "log"}}``; raises if an ``nvcc`` fails."""
+    stems = stems or tuple(SOURCES)
+    procs = {}
+    for stem in stems:
+        out = library_path(stem)
+        if out.exists():
+            build_log[stem] = {"seconds": 0.0, "cached": True, "log": ""}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", str(tmp), str(CSRC / SOURCES[stem][0])]
+        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out, time.perf_counter())
+    failed = []
+    for stem, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        build_log[stem] = {"seconds": time.perf_counter() - t0, "cached": False, "log": log}
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {stem} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {stem: build_log[stem] for stem in stems}
 
 
 def load(stem: str = "fused_apply") -> ctypes.CDLL:
@@ -79,12 +95,14 @@ def load(stem: str = "fused_apply") -> ctypes.CDLL:
     build(stem)
     lib = ctypes.CDLL(str(library_path(stem)))
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.avs_frame_bytes.argtypes = []
-    lib.avs_frame_bytes.restype = ll
-    lib.avs_max_levels.argtypes = []
-    lib.avs_max_levels.restype = ll
-    for fn in (lib.avs_tau_launch, lib.avs_dt_launch):
-        fn.argtypes = [vp, ll, vp]
-        fn.restype = ctypes.c_int
+    frame_fns, level_fns, probe = _ENTRIES[stem]
+    getattr(lib, probe).argtypes = []
+    getattr(lib, probe).restype = ll
+    for name in frame_fns:
+        getattr(lib, name).argtypes = [vp, ll, vp]
+        getattr(lib, name).restype = ctypes.c_int
+    for name in level_fns:
+        getattr(lib, name).argtypes = [vp, ll, ctypes.c_int, vp]
+        getattr(lib, name).restype = ctypes.c_int
     _loaded[stem] = lib
     return lib

@@ -17,24 +17,41 @@ Kernels (``csrc/fused_apply.cu``), replacing the Pallas TPU kernels
 ``_make_merged_kernel`` (:1447, levels >= 1), both with body
 ``_make_fused_body`` (:1044):
 
-* ``fused_tau`` -- one launch for all levels, one thread per stress sample:
-  the 3 edge and 3 center weighted stresses ``wte``/``wtc``.
-* ``fused_dt``  -- one launch for all levels, one thread per face sample:
-  ``out = [FLUID] * (D^T wtau + m u)``, ``zp`` (to level l+1) and ``zc``
-  (to level l-1), unmasked.
+* ``fused_tau`` -- one launch for a group of levels, one thread per stress
+  sample: the 3 edge and 3 center weighted stresses ``wte``/``wtc``.
+* ``fused_dt``  -- one launch for the same group, one thread per face
+  sample: ``out = [FLUID] * (D^T wtau + m u)``, ``zp`` (to level l+1) and
+  ``zc`` (to level l-1), unmasked.
 
-Both are bound by device-memory bytes (see ``kernel_bytes``).  Each wrapper
-runs its kernel on CUDA tensors and the plain PyTorch version of the same
-function (``tau_plain``/``dt_plain``) on CPU tensors; any other device
-raises.  Cross-level terms are joined outside the kernels by the glue
-(``up_view``/``cs_view`` and their adjoints, plain PyTorch), as in the JAX
-package.
+and (``csrc/level_apply.cu``), replacing ``_make_tau_kernel`` (:846),
+``_make_dt_kernel`` (:913) and the bricked branch of ``_level_kernel``
+(:751-843):
+
+* ``tau_level`` -- the weighted stresses of one level over a range of x
+  rows, into a scratch whose first row is the range's.
+* ``dt_level``  -- the D^T pass of one level over a range of x rows,
+  reading such a scratch.
+
+Routing (``level_modes``): the fused pair writes every level's weighted
+stresses to device memory and reads them back.  The levels whose stresses
+fit the card's L2 budget together run "fused"; a finer level that fits
+alone runs "split" (the level pair over the whole level); one that does not
+runs ``("brick", T)``: for each brick of T x rows, ``tau_level`` over the
+brick plus a ``TAU_HALO`` row halo, then ``dt_level`` on the brick.
+
+All four are bound by device-memory bytes (see ``kernel_bytes``).  Each
+wrapper runs its kernel on CUDA tensors and the plain PyTorch version of
+the same function (``tau_plain``/``dt_plain``, restricted to the rows) on
+CPU tensors; any other device raises.  Cross-level terms are joined
+outside the kernels by the glue (``up_view``/``cs_view`` and their
+adjoints, plain PyTorch), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,8 +70,19 @@ KIND_DT = torch.int8
 # pad past the closing face row.
 PAD = 2
 PACK_FILL = 63   # OUTSIDE (code 3) in every 2-bit slot
+TAU_NAMES = ("wte0", "wte1", "wte2", "wtc0", "wtc1", "wtc2")
+# x rows of weighted stress that D^T reads around a face row v: v - 1 (the
+# center slot d = 1, T4/T5 with so = +1) to v + 2 (a T5 block partner one
+# row up, read through the slot offset e_g), so a brick's scratch holds the
+# brick plus 2 rows each side (rounded up to even, as the JAX package's
+# D^T halo is)
+TAU_HALO = 2
+# share of the L2 cache the routing lets one tau round trip fill (the JAX
+# level_modes keeps the same margin against its VMEM limit)
+L2_SHARE = 0.9
 
 UField = Dict[Tuple[int, int], torch.Tensor]
+Mode = Union[str, Tuple[str, int]]
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +101,7 @@ class Canon:
     shape: Tuple[int, int, int]  # canonical array shape (even extents)
     win: Tuple[int, int, int]    # cell extents of the window (res if uncropped)
     org: Tuple[int, int, int] = (0, 0, 0)
+    brick: Optional[int] = None  # x rows per brick on the "brick" route (even)
 
     @property
     def off(self) -> Tuple[int, int, int]:
@@ -83,12 +112,33 @@ class Canon:
         """Logical rows the box holds per axis."""
         return tuple(s - 2 * PAD for s in self.shape)
 
+    def row_ranges(self) -> List[Tuple[int, int]]:
+        """x-row ranges the level pair runs over: the bricks (every origin
+        even, the last one possibly shorter), or the whole box."""
+        cx = self.shape[0]
+        step = self.brick or cx
+        return [(x, min(cx, x + step)) for x in range(0, cx, step)]
 
-def make_canon(res: Sequence[int], bbox=None) -> Canon:
+
+def _brick(rows) -> int:
+    if int(rows) != rows or rows < 2 or rows % 2:
+        raise ValueError(f"a brick is an even number of x rows >= 2, got {rows}")
+    return int(rows)
+
+
+def tau_rows(rows: Tuple[int, int], cx: int) -> Tuple[int, int]:
+    """x rows of weighted stress the D^T pass over ``rows`` reads: the
+    rows plus ``TAU_HALO`` each side, inside the box."""
+    return max(0, rows[0] - TAU_HALO), min(cx, rows[1] + TAU_HALO)
+
+
+def make_canon(res: Sequence[int], bbox=None, brick: Optional[int] = None) -> Canon:
     """Box for a level of resolution ``res``, optionally cropped to ``bbox``
     (((x0, x1), (y0, y1), (z0, z1)) cell ranges, each lo even).  The box
     covers the window's cells plus the staggered closing row, a pad of
-    ``PAD`` on each side, rounded up to even extents."""
+    ``PAD`` on each side, rounded up to even extents.  ``brick``: x rows
+    per brick of the "brick" route (even, so brick origins keep parity)."""
+    brick = None if brick is None else _brick(brick)
     if bbox is not None:
         org = tuple(int(b[0]) for b in bbox)
         for d, b in enumerate(bbox):
@@ -101,7 +151,71 @@ def make_canon(res: Sequence[int], bbox=None) -> Canon:
         org = (0, 0, 0)
         ext = list(res)
     shape = tuple(-(-(n + 1 + 2 * PAD) // 2) * 2 for n in ext)
-    return Canon(tuple(int(r) for r in res), shape, tuple(ext), org)
+    return Canon(tuple(int(r) for r in res), shape, tuple(ext), org, brick)
+
+
+# ---------------------------------------------------------------------------
+# routing by the card's L2 budget
+# ---------------------------------------------------------------------------
+
+
+def tau_bytes(canon: Canon, rows: Optional[int] = None) -> int:
+    """Bytes of the six float32 weighted-stress planes over ``rows`` x rows
+    of the level's box (all of them by default)."""
+    cx, cy, cz = canon.shape
+    return 4 * len(TAU_NAMES) * (cx if rows is None else rows) * cy * cz
+
+
+def level_modes(canons: Sequence[Canon], budget_bytes: float) -> List[Mode]:
+    """Per-level route (the port of pallas_apply.level_modes, with the L2
+    budget for the VMEM limit): levels join the "fused" group from the
+    coarsest up while the group's weighted stresses fit ``budget_bytes``
+    together; each finer level runs "split" if its own fit, else
+    ``("brick", T)`` with T the largest even row count whose scratch (T
+    plus the halo rows) fits.  Every level gets a route: a brick of 2 rows
+    always runs."""
+    levels = len(canons)
+    modes: List[Mode] = [""] * levels
+    group, l = 0, levels
+    while l > 0 and group + tau_bytes(canons[l - 1]) <= budget_bytes:
+        l -= 1
+        group += tau_bytes(canons[l])
+        modes[l] = "fused"
+    for k in range(l):
+        if tau_bytes(canons[k]) <= budget_bytes:
+            modes[k] = "split"
+        else:
+            rows = int(budget_bytes // tau_bytes(canons[k], 1)) - 2 * TAU_HALO
+            modes[k] = ("brick", max(2, rows // 2 * 2))
+    return modes
+
+
+def route_budget(device) -> float:
+    """Bytes of weighted stress one route may round-trip: ``L2_SHARE`` of
+    the card's L2 cache.  The plain versions on the CPU have no cache to
+    fit: unbounded, so every level runs fused (pass a budget to
+    :func:`level_modes` to force another route)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return math.inf
+    return L2_SHARE * torch.cuda.get_device_properties(device).L2_cache_size
+
+
+def route_canons(canons: Sequence[Canon], modes: Sequence[Mode]) -> List[Canon]:
+    """``canons`` with each level's brick set from its route."""
+    if len(modes) != len(canons):
+        raise ValueError(f"{len(modes)} modes for {len(canons)} levels")
+    out = []
+    for c, m in zip(canons, modes):
+        if isinstance(m, tuple):
+            if m[0] != "brick":
+                raise ValueError(f"unknown route {m!r}")
+            out.append(dataclasses.replace(c, brick=_brick(m[1])))
+        elif m in ("fused", "split"):
+            out.append(dataclasses.replace(c, brick=None))
+        else:
+            raise ValueError(f"unknown route {m!r}")
+    return out
 
 
 def embed(arr: torch.Tensor, canon: Canon, fill=0) -> torch.Tensor:
@@ -209,14 +323,22 @@ def pack_groups(level: int, levels: int) -> List[List[str]]:
     return [fields[i:i + 3] for i in range(0, len(fields), 3)]
 
 
+def level_canons(res_per_level, bboxes=None) -> List[Canon]:
+    return [make_canon(res, None if bboxes is None else bboxes[l])
+            for l, res in enumerate(res_per_level)]
+
+
 def build_frame_data(labels, vel_kinds, edge_kinds, center_kinds, blocks, mass: UField,
-                     res_per_level, bboxes=None):
+                     res_per_level, bboxes=None, modes: Optional[Sequence[Mode]] = None):
     """Embed the per-frame loop-invariant arrays into canonical boxes.
     Kind grids go in bit-packed (unused slots read OUTSIDE); ``bboxes``
-    crops each box to the occupied window.  Returns (data, canons)."""
+    crops each box to the occupied window; ``modes`` sets the bricks of
+    the bricked levels (the arrays are the same on every route).  Returns
+    (data, canons)."""
     levels = len(res_per_level)
-    canons = [make_canon(res_per_level[l], None if bboxes is None else bboxes[l])
-              for l in range(levels)]
+    canons = level_canons(res_per_level, bboxes)
+    if modes is not None:
+        canons = route_canons(canons, modes)
     data: Dict[str, torch.Tensor] = {}
     for l in range(levels):
         c = canons[l]
@@ -431,7 +553,7 @@ def dt_plain(args: Dict[str, torch.Tensor], wte, wtc, meta: LevelMeta, enhanced:
 # ---------------------------------------------------------------------------
 
 # kernel name -> number of launches (counted where the kernel is launched)
-launch_counts = {"fused_tau": 0, "fused_dt": 0}
+launch_counts = {"fused_tau": 0, "fused_dt": 0, "tau_level": 0, "dt_level": 0}
 
 
 def reset_launch_counts() -> None:
@@ -443,7 +565,7 @@ _PTR_FIELDS = (["u0", "u1", "u2", "up0", "up1", "up2", "cs0", "cs1", "cs2",
                 "kp0", "kp1", "kp2", "kp3", "we0", "we1", "we2", "wc", "m0", "m1", "m2",
                 "wte0", "wte1", "wte2", "wtc0", "wtc1", "wtc2",
                 "out0", "out1", "out2", "zp0", "zp1", "zp2", "zc0", "zc1", "zc2"])
-_LEVEL_WORDS = 44
+_LEVEL_WORDS = 46
 MAX_LEVELS = 8
 
 
@@ -467,7 +589,7 @@ def _device_of(levels: Sequence[Dict[str, torch.Tensor]]) -> torch.device:
 def _check(levels, metas, names_fn) -> None:
     if len(levels) > MAX_LEVELS:
         raise ValueError(f"at most {MAX_LEVELS} levels, got {len(levels)}")
-    dev = levels[0]["u0"].device
+    dev = levels[0][names_fn(metas[0])[0]].device
     for args, meta in zip(levels, metas):
         for name in names_fn(meta):
             t = args[name]
@@ -479,21 +601,32 @@ def _check(levels, metas, names_fn) -> None:
                     f"{meta.shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _level_words(args, meta: LevelMeta, start: int = 0, rows: Optional[Tuple[int, int]] = None,
+                 tau_x0: int = 0, tau_nx: Optional[int] = None) -> np.ndarray:
+    """int64 words of csrc's AvsLevel: the threads of x rows ``rows`` (all
+    by default) from thread ``start`` on; wte/wtc hold rows from
+    ``tau_x0`` (``tau_nx`` of them, all by default)."""
+    words = np.zeros(_LEVEL_WORDS, np.int64)
+    for j, name in enumerate(_PTR_FIELDS):
+        t = args.get(name)
+        if t is not None:
+            words[j] = t.data_ptr()
+    cx, cy, cz = meta.shape
+    r0, r1 = (0, cx) if rows is None else rows
+    words[35:42] = [cx, cy, cz, start, (r1 - r0) * cy * cz, int(meta.has_parent),
+                    int(meta.has_child)]
+    words[42] = np.array([1.0 / meta.dxw], np.float64).view(np.int64)[0]
+    words[43:46] = [r0, tau_x0, cx if tau_nx is None else tau_nx]
+    return words
+
+
 def _frame(levels, metas, enhanced: bool):
     """Host descriptor (int64 words of csrc AvsFrame) and total threads."""
     words = np.zeros(MAX_LEVELS * _LEVEL_WORDS + 3, np.int64)
     start = 0
     for l, (args, meta) in enumerate(zip(levels, metas)):
-        base = l * _LEVEL_WORDS
-        for j, name in enumerate(_PTR_FIELDS):
-            t = args.get(name)
-            if t is not None:
-                words[base + j] = t.data_ptr()
-        count = int(np.prod(meta.shape))
-        words[base + 35:base + 42] = [*meta.shape, start, count,
-                                      int(meta.has_parent), int(meta.has_child)]
-        words[base + 42] = np.array([1.0 / meta.dxw], np.float64).view(np.int64)[0]
-        start += count
+        words[l * _LEVEL_WORDS:(l + 1) * _LEVEL_WORDS] = _level_words(args, meta, start)
+        start += int(np.prod(meta.shape))
     words[-3:] = [len(levels), start, int(enhanced)]
     return words, start
 
@@ -516,18 +649,61 @@ def _launch(entry: str, levels, metas, enhanced: bool) -> None:
         raise RuntimeError(f"{entry} failed: cudaError {err}")
 
 
+def _launch_level(entry: str, words: np.ndarray, enhanced: bool, dev: torch.device) -> None:
+    from . import _build
+
+    lib = _build.load("level_apply")
+    if lib.avs_level_bytes() != _LEVEL_WORDS * 8:
+        raise RuntimeError("AvsLevel layout mismatch between csrc and Python")
+    # the launch copies the descriptor into the kernel's parameters: no
+    # device copy, and ``words`` may go once the call returns
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, entry)(words.ctypes.data, int(words[39]), int(enhanced), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {err}")
+
+
+def _tau_buffers(metas: Sequence[LevelMeta], dev) -> List[Dict[str, torch.Tensor]]:
+    return [{n: torch.empty(meta.shape, dtype=F32, device=dev) for n in TAU_NAMES}
+            for meta in metas]
+
+
+def _check_rows(rows: Tuple[int, int], meta: LevelMeta) -> None:
+    if not 0 <= rows[0] < rows[1] <= meta.shape[0]:
+        raise ValueError(f"x rows {rows} are not a range of level {meta.level}'s "
+                         f"{meta.shape[0]} rows")
+
+
+def _check_tau(tau: Dict[str, torch.Tensor], meta: LevelMeta, rows: int, dev) -> None:
+    want = (rows,) + tuple(meta.shape[1:])
+    for n in TAU_NAMES:
+        t = tau[n]
+        if t.device != dev or t.dtype != F32 or tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(f"level {meta.level} {n}: need a contiguous float32 tensor of shape "
+                             f"{want} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def fused_tau(levels: Sequence[Dict[str, torch.Tensor]], metas: Sequence[LevelMeta],
-              enhanced: bool) -> List[Dict[str, torch.Tensor]]:
-    """Weighted stresses ``wte0-2``/``wtc0-2`` of every level.
+              enhanced: bool, out: Optional[List[Dict[str, torch.Tensor]]] = None
+              ) -> List[Dict[str, torch.Tensor]]:
+    """Weighted stresses ``wte0-2``/``wtc0-2`` of every level, into ``out``
+    (per level, six tensors of the box's shape) if given.
 
     CUDA tensors: one launch of the tau kernel over all levels.  CPU
     tensors: :func:`tau_plain` per level."""
     dev = _device_of(levels)
     if dev.type == "cpu":
-        return _plain_tau(levels, metas, enhanced)
+        res = _plain_tau(levels, metas, enhanced)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            for n in TAU_NAMES:
+                o[n].copy_(r[n])
+        return out
     _check(levels, metas, level_input_names)
-    res = [{n: torch.empty(meta.shape, dtype=F32, device=dev)
-            for n in ("wte0", "wte1", "wte2", "wtc0", "wtc1", "wtc2")} for meta in metas]
+    res = _tau_buffers(metas, dev) if out is None else out
+    for r, meta in zip(res, metas):
+        _check_tau(r, meta, meta.shape[0], dev)
     _launch("avs_tau_launch", [{**a, **r} for a, r in zip(levels, res)], metas, enhanced)
     launch_counts["fused_tau"] += 1
     return res
@@ -537,6 +713,20 @@ def _dt_names(meta: LevelMeta) -> List[str]:
     names = [f"wte{a}" for a in range(3)] + [f"wtc{x}" for x in range(3)]
     names += [f"kp{g}" for g in range(4 if meta.has_parent else 3)]
     return names + [f"u{f}" for f in range(3)] + [f"m{f}" for f in range(3)]
+
+
+def _dt_output_names(meta: LevelMeta) -> List[str]:
+    names = [f"out{f}" for f in range(3)]
+    if meta.has_parent:
+        names += [f"zp{f}" for f in range(3)]
+    if meta.has_child:
+        names += [f"zc{f}" for f in range(3)]
+    return names
+
+
+def dt_outputs(meta: LevelMeta, dev) -> Dict[str, torch.Tensor]:
+    """Uninitialised output tensors of one level's D^T pass."""
+    return {n: torch.empty(meta.shape, dtype=F32, device=dev) for n in _dt_output_names(meta)}
 
 
 def fused_dt(levels: Sequence[Dict[str, torch.Tensor]], taus: Sequence[Dict[str, torch.Tensor]],
@@ -551,58 +741,138 @@ def fused_dt(levels: Sequence[Dict[str, torch.Tensor]], taus: Sequence[Dict[str,
         return _plain_dt(levels, taus, metas, enhanced)
     merged = [{**a, **t} for a, t in zip(levels, taus)]
     _check(merged, metas, _dt_names)
-    res = []
-    for meta in metas:
-        names = [f"out{f}" for f in range(3)]
-        if meta.has_parent:
-            names += [f"zp{f}" for f in range(3)]
-        if meta.has_child:
-            names += [f"zc{f}" for f in range(3)]
-        res.append({n: torch.empty(meta.shape, dtype=F32, device=dev) for n in names})
+    res = [dt_outputs(meta, dev) for meta in metas]
     _launch("avs_dt_launch", [{**m, **r} for m, r in zip(merged, res)], metas, enhanced)
     launch_counts["fused_dt"] += 1
     return res
 
 
-def _window_counts(m: LevelMeta):
-    """Logical samples of one level's window: (face, edge, cell, node)
-    counts, face and edge summed over the three axes."""
+def tau_level(args: Dict[str, torch.Tensor], meta: LevelMeta, enhanced: bool,
+              rows: Tuple[int, int], tau: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Weighted stresses of one level's x rows ``rows`` = (r0, r1) into
+    ``tau`` (``wte0-2``/``wtc0-2``, each of shape (r1 - r0, CY, CZ), first
+    row r0).
+
+    CUDA tensors: one launch of the level tau kernel.  CPU tensors:
+    :func:`tau_plain`'s rows."""
+    _check_rows(rows, meta)
+    dev = _device_of([args])
+    if dev.type == "cpu":
+        return plain_tau_level(args, meta, enhanced, rows, tau)
+    _check([args], [meta], level_input_names)
+    _check_tau(tau, meta, rows[1] - rows[0], dev)
+    words = _level_words({**args, **tau}, meta, rows=rows, tau_x0=rows[0],
+                         tau_nx=rows[1] - rows[0])
+    _launch_level("avs_tau_level_launch", words, enhanced, dev)
+    launch_counts["tau_level"] += 1
+    return tau
+
+
+def dt_level(args: Dict[str, torch.Tensor], tau: Dict[str, torch.Tensor], tau_x0: int,
+             meta: LevelMeta, enhanced: bool, rows: Tuple[int, int],
+             out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """D^T pass of one level on x rows ``rows``: writes those rows of
+    ``out`` (the level's ``out``/``zp``/``zc``, box-shaped), reading the
+    weighted stresses ``tau``, whose first row is ``tau_x0``; they must
+    hold :func:`tau_rows` of ``rows``.
+
+    CUDA tensors: one launch of the level D^T kernel.  CPU tensors:
+    :func:`dt_plain`'s rows."""
+    _check_rows(rows, meta)
+    dev = _device_of([args])
+    nx = tau["wte0"].shape[0]
+    t0, t1 = tau_rows(rows, meta.shape[0])
+    if not 0 <= tau_x0 <= t0 or t1 > tau_x0 + nx or tau_x0 + nx > meta.shape[0]:
+        raise ValueError(f"weighted stresses of rows [{tau_x0}, {tau_x0 + nx}) do not hold "
+                         f"the rows [{t0}, {t1}) that D^T reads on rows {rows}, inside the "
+                         f"box's {meta.shape[0]} rows")
+    if dev.type == "cpu":
+        return plain_dt_level(args, tau, tau_x0, meta, enhanced, rows, out)
+    _check([args], [meta], lambda m: _dt_names(m)[6:])
+    _check([out], [meta], _dt_output_names)
+    _check_tau(tau, meta, nx, dev)
+    words = _level_words({**args, **tau, **out}, meta, rows=rows, tau_x0=tau_x0, tau_nx=nx)
+    _launch_level("avs_dt_level_launch", words, enhanced, dev)
+    launch_counts["dt_level"] += 1
+    return out
+
+
+def plain_tau_level(args, meta: LevelMeta, enhanced: bool, rows, tau):
+    """Plain version of :func:`tau_level`: the level's :func:`tau_plain`,
+    restricted to the rows."""
+    full = _plain_tau([args], [meta], enhanced)[0]
+    for n in TAU_NAMES:
+        tau[n].copy_(full[n][rows[0]:rows[1]])
+    return tau
+
+
+def plain_dt_level(args, tau, tau_x0: int, meta: LevelMeta, enhanced: bool, rows, out):
+    """Plain version of :func:`dt_level`: the level's :func:`dt_plain` on
+    the weighted stresses held (zero on every other row), restricted to
+    the rows."""
+    full = {}
+    for n in TAU_NAMES:
+        t = torch.zeros(meta.shape, dtype=F32, device=tau[n].device)
+        t[tau_x0:tau_x0 + tau[n].shape[0]] = tau[n]
+        full[n] = t
+    res = _plain_dt([args], [full], [meta], enhanced)[0]
+    for n, o in out.items():
+        o[rows[0]:rows[1]] = res[n][rows[0]:rows[1]]
+    return out
+
+
+def _window_counts(m: LevelMeta, rows: Optional[Tuple[int, int]] = None):
+    """Logical samples of one level's window, on canonical x rows ``rows``
+    only if given: (face, edge, cell, node) counts, face and edge summed
+    over the three axes."""
     w = m.win
-    face = sum(int(np.prod(face_shape(w, f))) for f in range(3))
-    edge = sum(int(np.prod(edge_shape(w, a))) for a in range(3))
-    return face, edge, int(np.prod(w)), int(np.prod(node_shape(w)))
+
+    def count(shape):
+        nx = shape[0]
+        if rows is not None:   # the window's x rows are canonical [PAD, PAD + nx)
+            nx = max(0, min(rows[1], PAD + nx) - max(rows[0], PAD))
+        return nx * int(shape[1]) * int(shape[2])
+
+    face = sum(count(face_shape(w, f)) for f in range(3))
+    edge = sum(count(edge_shape(w, a)) for a in range(3))
+    return face, edge, count(tuple(w)), count(node_shape(w))
 
 
-def kernel_bytes(metas: Sequence[LevelMeta]) -> Dict[str, int]:
-    """Device-memory bytes each kernel must move at these windows: every
-    input read once and every output written once, over each level's
+def kernel_bytes(metas: Sequence[LevelMeta], rows: Optional[Tuple[int, int]] = None
+                 ) -> Dict[str, int]:
+    """Device-memory bytes the tau and D^T passes must move at these
+    windows (on the canonical x rows ``rows`` of each level, if given):
+    every input read once and every output written once, over each level's
     logical window (its cells plus the closing face row), not the padded
     canonical box, whose pad cells hold only zeros and OUTSIDE kinds that
     the kernels also get from their bounds checks.  Each packed kind byte
-    covers the window's node box (face, edge and cell grids together)."""
+    covers the window's node box (face, edge and cell grids together).  The
+    same counts bound both routes: the bricks' halo rows, recomputed and
+    read again, are the brick design's cost, not the work's."""
     tau_b = dt_b = 0
     for m in metas:
-        face, edge, cell, node = _window_counts(m)
+        face, edge, cell, node = _window_counts(m, rows)
         kinds = (4 if m.has_parent else 3) * node
         views = int(m.has_parent) + int(m.has_child)     # up, cs inputs
         # tau: u (+ up, cs), we, wc, kinds in; wte, wtc out
         tau_b += 4 * face * (1 + views) + 4 * (edge + cell) + kinds + 4 * (edge + 3 * cell)
         # D^T: wte, wtc, u, m, kinds in; out (+ zp, zc) out
         dt_b += 4 * (edge + 3 * cell) + 4 * 2 * face + kinds + 4 * face * (1 + views)
-    return {"fused_tau": tau_b, "fused_dt": dt_b}
+    return {"tau": tau_b, "dt": dt_b}
 
 
-def kernel_flops(metas: Sequence[LevelMeta], enhanced: bool) -> Dict[str, int]:
+def kernel_flops(metas: Sequence[LevelMeta], enhanced: bool,
+                 rows: Optional[Tuple[int, int]] = None) -> Dict[str, int]:
     """Floating-point operations of the term algebra over the same windows:
     one multiply-add per stencil term and stress sample in each pass (the
     coefficient rebuild from the kinds is not counted)."""
     tau_f = 0
     for m in metas:
-        _, edge, cell, _ = _window_counts(m)
+        _, edge, cell, _ = _window_counts(m, rows)
         per_slot = 1 + (2 if enhanced else 0) + (5 if m.has_parent else 0)
         # edge axis a: 2 face axes x 2 slots per sample; center: 3 components x 2 slots
         tau_f += 2 * (edge * 2 * 2 * per_slot + cell * 3 * 2 * (2 if m.has_child else 1))
-    return {"fused_tau": tau_f, "fused_dt": tau_f}
+    return {"tau": tau_f, "dt": tau_f}
 
 
 # ---------------------------------------------------------------------------
@@ -636,20 +906,43 @@ def _plain_dt(levels, taus, metas, enhanced):
 
 def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
                         active: UField, res_per_level, dx: float, enhanced: bool,
-                        plain: bool = False):
+                        plain: bool = False, modes: Optional[Sequence[Mode]] = None):
     """Return (apply_A, embed_tree, crop_tree) in canonical space (the port
     of make_pallas_operator): per apply, the glue builds the cross-level
-    views, ``fused_tau`` and ``fused_dt`` run once each over all levels,
-    and the zp/zc adjoints are added masked to the receiving level.
+    views; the "fused" levels run ``fused_tau`` and ``fused_dt`` once each
+    for the whole group; each "split" or bricked level runs
+    ``tau_level``/``dt_level`` once per x-row range of its canon
+    (:meth:`Canon.row_ranges`) over one weighted-stress scratch, allocated
+    here once and shared by those levels; then the zp/zc adjoints are added
+    masked to the receiving level.
 
+    ``modes``: the route of each level (default all "fused"); a bricked
+    level's canon carries its brick (:func:`route_canons`).
     ``plain=True`` calls the kernels' plain versions on any device (the
     yardstick a kernel is held to on the card; never the solver's path)."""
     levels = len(res_per_level)
+    modes = ["fused"] * levels if modes is None else list(modes)
+    if [c.brick for c in route_canons(canons, modes)] != [c.brick for c in canons]:
+        raise ValueError(f"routes {modes} disagree with the canons' bricks "
+                         f"{[c.brick for c in canons]}: build the canons with route_canons")
     metas = level_metas(canons, dx)
+    dev = frame["kp0_0"].device
     active_c = {(l, f): embed(active[(l, f)], canons[l], False)
                 for l in range(levels) for f in range(3)}
     static = [{n: frame[f"{n}_{l}"] for n in level_input_names(metas[l])
                if not n.startswith(("u", "up", "cs"))} for l in range(levels)]
+    fused = [l for l in range(levels) if modes[l] == "fused"]
+    routed = [l for l in range(levels) if modes[l] != "fused"]
+    fused_scratch = _tau_buffers([metas[l] for l in fused], dev)
+    scratch_len = max([int(np.prod(canons[l].shape[1:])) * (t1 - t0) for l in routed
+                       for t0, t1 in (tau_rows(r, canons[l].shape[0])
+                                      for r in canons[l].row_ranges())], default=0)
+    scratch = torch.empty(len(TAU_NAMES) * scratch_len, dtype=F32, device=dev)
+
+    def tau_view(l: int, rows: int) -> Dict[str, torch.Tensor]:
+        n = rows * int(np.prod(canons[l].shape[1:]))
+        return {name: scratch[k * n:(k + 1) * n].view(rows, *canons[l].shape[1:])
+                for k, name in enumerate(TAU_NAMES)}
 
     def embed_tree(u: UField, fill=0.0) -> UField:
         return {(l, f): embed(u[(l, f)].to(F32), canons[l], fill) for (l, f) in u}
@@ -671,12 +964,31 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
             args.append(d)
         return args
 
+    def level_pair(l: int, args: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One split or bricked level: the pair once per x-row range."""
+        meta = metas[l]
+        tau_fn, dt_fn = (plain_tau_level, plain_dt_level) if plain else (tau_level, dt_level)
+        out = dt_outputs(meta, dev)
+        for rows in canons[l].row_ranges():
+            t0, t1 = tau_rows(rows, meta.shape[0])
+            tau = tau_fn(args, meta, enhanced, (t0, t1), tau_view(l, t1 - t0))
+            dt_fn(args, tau, t0, meta, enhanced, rows, out)
+        return out
+
     def apply_A(u: UField) -> UField:
         args = level_args(u)
-        if plain:
-            res = _plain_dt(args, _plain_tau(args, metas, enhanced), metas, enhanced)
-        else:
-            res = fused_dt(args, fused_tau(args, metas, enhanced), metas, enhanced)
+        res: List[Optional[Dict[str, torch.Tensor]]] = [None] * levels
+        if fused:
+            fa_, fm = [args[l] for l in fused], [metas[l] for l in fused]
+            if plain:
+                fres = _plain_dt(fa_, _plain_tau(fa_, fm, enhanced), fm, enhanced)
+            else:
+                fres = fused_dt(fa_, fused_tau(fa_, fm, enhanced, out=fused_scratch), fm,
+                                enhanced)
+            for l, r in zip(fused, fres):
+                res[l] = r
+        for l in routed:
+            res[l] = level_pair(l, args[l])
         outs = {(l, f): res[l][f"out{f}"] for l in range(levels) for f in range(3)}
         zero = torch.zeros((), dtype=F32, device=u[(0, 0)].device)
         for l in range(levels - 1):
@@ -690,5 +1002,6 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
         return outs
 
     apply_A.metas = metas
+    apply_A.modes = modes
     apply_A.level_args = level_args
     return apply_A, embed_tree, crop_tree

@@ -168,10 +168,13 @@ class System:
     rhs: Dict[Tuple[int, int], torch.Tensor]
     guess: Dict[Tuple[int, int], torch.Tensor]
     diag: Dict[Tuple[int, int], torch.Tensor]
+    blocks: list = dataclasses.field(default_factory=list)   # stencils.StressBlock
+    mass: Optional[Dict[Tuple[int, int], torch.Tensor]] = None
     embed_tree: object = None
     crop_tree: object = None
     frame: Optional[Dict[str, torch.Tensor]] = None
     canons: Optional[list] = None
+    modes: Optional[list] = None       # per-level route of the fused apply
 
 
 def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *,
@@ -180,7 +183,9 @@ def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *
     """Every stage of :func:`solve_viscosity` up to the CG: surface weights,
     octree, labels, stencils, restriction, and the system (operator, rhs,
     Jacobi diagonal).  ``bboxes`` are per-level crop windows for the fused
-    apply (from :func:`probe_topology`)."""
+    apply (from :func:`probe_topology`).  The fused apply routes each level
+    by the card's L2 budget (``fused_apply.level_modes`` with
+    ``fused_apply.route_budget(device)``)."""
     device = torch.device(device)
     _validate_state(state)
     state = state.to(device=device, dtype=config.dtype)
@@ -255,14 +260,18 @@ def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *
             raise ValueError("apply_impl='cuda' computes in float32; for a float64 solve "
                              "use apply_impl='v1'")
         sys_ = System(state, orig_res, levels, impl, labels, vel_kinds, regular_kinds,
-                      res_per_level, active, v1_apply, v1_apply, rhs, guess, diag)
+                      res_per_level, active, v1_apply, v1_apply, rhs, guess, diag,
+                      blocks=blocks, mass=mass)
         if impl == "cuda":
+            modes = fused_apply.level_modes(fused_apply.level_canons(res_per_level, bboxes),
+                                            fused_apply.route_budget(device))
             frame, canons = fused_apply.build_frame_data(
                 labels, vel_kinds, edge_kinds, center_kinds, blocks, mass, res_per_level,
-                bboxes=bboxes)
+                bboxes=bboxes, modes=modes)
             sys_.apply_A, sys_.embed_tree, sys_.crop_tree = fused_apply.make_fused_operator(
-                frame, canons, active, res_per_level, dx, config.use_enhanced_gradients)
-            sys_.frame, sys_.canons = frame, canons
+                frame, canons, active, res_per_level, dx, config.use_enhanced_gradients,
+                modes=modes)
+            sys_.frame, sys_.canons, sys_.modes = frame, canons, modes
     return sys_
 
 

@@ -9,11 +9,19 @@ main path solves a real frame through them.
 Phases (one line each, elapsed seconds first):
   0 device   -- card name and power limit (nvidia-smi), torch version; no
                 CUDA device is a failure, never a CPU run
-  1 build    -- nvcc builds csrc/ into build/torch_kernels/ (budget 60 s)
+  1 build    -- nvcc builds csrc/ into build/torch_kernels/, one nvcc per
+                source, all started together (budget 60 s)
   2 kernels  -- on buckling-96's real frame data, every kernel against its
                 plain version on the card (3e-5 * max per level and output),
                 and the whole fused apply against its plain version and the
-                whole-array operator; kernel / plain times with CUDA events
+                whole-array operator; kernel / plain times with CUDA events;
+                the library yardstick: the assembled CSR system (export.py)
+                times A @ x on the card, checked against the apply
+  2b routes  -- every route on the same frame: split, bricked (>= 3 bricks
+                on level 0) and fused levels mixed, and every level bricked;
+                tau_level / dt_level against their plain versions per level,
+                brick and output, the whole routed apply against the plain
+                apply and the whole-array operator, exact-zero pads
   3 solve    -- make_solver(SolverConfig(octree_levels=4, tolerance=1e-4))
                 on scenes.buckling(96): one cold and three warm frames,
                 through the kernels (launch counts read around the cold
@@ -24,13 +32,26 @@ Phases (one line each, elapsed seconds first):
   4 trace    -- torch.profiler trace of one more warm frame: device idle
                 share of the frame and of each stage (the stages are
                 record_function spans), device time per op in the CG
+  5 192      -- the large-grid path: make_solver on scenes.buckling(192),
+                one cold and two warm frames through the routes the card's L2
+                budget picks (launch counts read around the cold frame),
+                checked against the JAX package's counts (4 levels, 820288 /
+                2209612 DOFs, 337 +- 2 iterations, residual <= 1e-4); the
+                level kernels against their plain versions at these shapes;
+                A/B of the default routes against every level fused
+  6 256      -- scenes.buckling(256): one frame on the default routes (brick
+                and split launched) against one with every level fused (an
+                unbounded budget): same DOFs, iterations +- 2, velocity
+                within rel 5e-4; peak device memory
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``.  Every failed check raises; the whole
 run is bounded by an in-process deadline.  It imports nothing of JAX.
 """
 
+import dataclasses
 import json
+import math
 import os
 import signal
 import statistics
@@ -45,8 +66,17 @@ FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 TOL = 3e-5                  # kernel vs plain: atol = TOL * max|plain|
 N = 96
 EXPECT = dict(levels=3, octree_dofs=186836, regular_dofs=284564, iterations=203)
-REPLACES = ("adaptiveviscositysolver_tpu/ops/pallas_apply.py:1359 (_make_fused_kernel, "
-            "level 0) + :1447 (_make_merged_kernel, levels >= 1)")
+# the JAX package's record of buckling-192 (BENCH_r05.json, scale_point)
+EXPECT_192 = dict(levels=4, octree_dofs=820288, regular_dofs=2209612, iterations=337)
+_PA = "adaptiveviscositysolver_tpu/ops/pallas_apply.py"
+_FUSED = f"{_PA}:1359 (_make_fused_kernel, level 0) + :1447 (_make_merged_kernel, levels >= 1)"
+REPLACES = {
+    "fused_tau": _FUSED, "fused_dt": _FUSED,
+    "tau_level": f"{_PA}:846 (_make_tau_kernel) + :751-843 (_level_kernel, bricked branch)",
+    "dt_level": f"{_PA}:913 (_make_dt_kernel) + :751-843 (_level_kernel, bricked branch)",
+}
+SOURCE = {"fused_tau": "fused_apply.cu", "fused_dt": "fused_apply.cu",
+          "tau_level": "level_apply.cu", "dt_level": "level_apply.cu"}
 
 T0 = time.perf_counter()
 
@@ -132,6 +162,146 @@ def max_rel_err(pairs):
     return worst_abs, worst_rel
 
 
+def bound(nbytes, nflops):
+    """(least ms, what bounds it): bytes over the memory rate or operations
+    over the float32 rate, whichever takes longer."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f_ms = nflops / FP32_FLOPS_PER_S * 1e3
+    return (max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations")
+
+
+def pads_zero(out, res_per_level, canons, what):
+    """Every canonical pad of an apply's output is exactly zero (the CG's
+    flat vector spans the whole box)."""
+    import torch
+    from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
+    from adaptiveviscositysolver_tpu_torch.ops.arrayops import face_shape
+
+    for (l, f), arr in out.items():
+        win = fa.embed(torch.ones(face_shape(res_per_level[l], f), dtype=torch.bool,
+                                  device=arr.device), canons[l], False)
+        assert not bool(arr[~win].any()), f"{what}: level {l} axis {f}: a pad is not zero"
+
+
+def _tau_bufs(meta, rows, dev):
+    import torch
+    from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
+
+    return {n: torch.empty((rows[1] - rows[0],) + tuple(meta.shape[1:]), device=dev)
+            for n in fa.TAU_NAMES}
+
+
+def level_pair_errors(args, meta, canon, enh):
+    """tau_level and dt_level on the card against their plain versions on
+    every x-row range of one routed level (both D^T passes fed the plain
+    weighted stresses), per range and output: the worst (abs, rel) of
+    each kernel."""
+    from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
+
+    dev = args["u0"].device
+    tau_pairs = []
+    out_k, out_p = fa.dt_outputs(meta, dev), fa.dt_outputs(meta, dev)
+    for rows in canon.row_ranges():
+        t = fa.tau_rows(rows, meta.shape[0])
+        tk = fa.tau_level(args, meta, enh, t, _tau_bufs(meta, t, dev))
+        tp = fa.plain_tau_level(args, meta, enh, t, _tau_bufs(meta, t, dev))
+        tau_pairs += [(f"level {meta.level} rows {t} {n}", tk[n], tp[n]) for n in fa.TAU_NAMES]
+        fa.dt_level(args, tp, t[0], meta, enh, rows, out_k)
+        fa.plain_dt_level(args, tp, t[0], meta, enh, rows, out_p)
+    dt_pairs = [(f"level {meta.level} {n}", out_k[n], out_p[n]) for n in out_p]
+    return max_rel_err(tau_pairs), max_rel_err(dt_pairs)
+
+
+def time_level_pair(args, meta, canon, enh, reps, plain=False):
+    """Milliseconds per apply of one routed level's tau_level and dt_level
+    launches (every x-row range, in the apply's order), from CUDA events
+    around each launch; ``plain``: the plain versions."""
+    import torch
+    from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
+
+    dev = args["u0"].device
+    ranges = canon.row_ranges()
+    taus = [_tau_bufs(meta, fa.tau_rows(r, meta.shape[0]), dev) for r in ranges]
+    out = fa.dt_outputs(meta, dev)
+    tau_fn, dt_fn = ((fa.plain_tau_level, fa.plain_dt_level) if plain
+                     else (fa.tau_level, fa.dt_level))
+
+    def one(ev=None):
+        for i, rows in enumerate(ranges):
+            t = fa.tau_rows(rows, meta.shape[0])
+            ev and ev[i][0].record()
+            tau_fn(args, meta, enh, t, taus[i])
+            ev and ev[i][1].record()
+            dt_fn(args, taus[i], t[0], meta, enh, rows, out)
+            ev and ev[i][2].record()
+
+    one()
+    torch.cuda.synchronize()
+    tau_ms = dt_ms = 0.0
+    for _ in range(reps):
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in ranges]
+        one(ev)
+        torch.cuda.synchronize()
+        tau_ms += sum(e[0].elapsed_time(e[1]) for e in ev)
+        dt_ms += sum(e[1].elapsed_time(e[2]) for e in ev)
+    return tau_ms / reps, dt_ms / reps
+
+
+def time_fused_levels(args, metas, enh, reps):
+    """Milliseconds per apply of fused_tau and fused_dt over these levels."""
+    import torch
+    from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
+
+    taus = fa.fused_tau(args, metas, enh)
+    fa.fused_dt(args, taus, metas, enh)
+    torch.cuda.synchronize()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(reps)]
+    for e in ev:
+        e[0].record()
+        fa.fused_tau(args, metas, enh, out=taus)
+        e[1].record()
+        fa.fused_dt(args, taus, metas, enh)
+        e[2].record()
+    torch.cuda.synchronize()
+    return (sum(e[0].elapsed_time(e[1]) for e in ev) / reps,
+            sum(e[1].elapsed_time(e[2]) for e in ev) / reps)
+
+
+def csr_yardstick(sys_, u_log, levels, reps):
+    """The library call: the assembled system of the stress blocks of
+    ``levels`` (mass of those levels only), exported on the host
+    (export.py, float64) and put on the card as a float32 CSR tensor, times
+    ``A @ x`` on the DOF vector of ``u_log`` (cuSPARSE).  Returns (ms,
+    A @ x as per-(level, axis) grids, export seconds, nonzeros)."""
+    import numpy as np
+    import torch
+    from adaptiveviscositysolver_tpu_torch import export
+
+    t = time.perf_counter()
+    blocks = [b for b in sys_.blocks if b.level in levels]
+    mass = {k: v if k[0] in levels else torch.zeros_like(v) for k, v in sys_.mass.items()}
+    A, _, vel_idx, n = export.export_sparse_system(blocks, mass, sys_.vel_kinds, sys_.guess,
+                                                   sys_.res_per_level)
+    export_s = time.perf_counter() - t
+    dev = u_log[(0, 0)].device
+    A_t = torch.sparse_csr_tensor(torch.from_numpy(A.indptr.astype(np.int32)),
+                                  torch.from_numpy(A.indices.astype(np.int32)),
+                                  torch.from_numpy(A.data.astype(np.float32)), (n, n)).to(dev)
+    x = np.zeros(n, np.float32)
+    for (l, a), idx in ((k, vel_idx[k[0]][k[1]]) for k in u_log):
+        sel = idx >= 0
+        x[idx[sel]] = u_log[(l, a)].cpu().numpy()[sel]
+    x = torch.from_numpy(x).to(dev)
+    ms = cuda_ms(lambda: A_t @ x, reps)
+    y = (A_t @ x).cpu().numpy()
+    grids = {}
+    for (l, a) in u_log:
+        idx = vel_idx[l][a]
+        grids[(l, a)] = torch.from_numpy(np.where(idx >= 0, y[np.clip(idx, 0, None)], 0.0)
+                                         .astype(np.float32)).to(dev)
+    return ms, grids, export_s, int(A.nnz)
+
+
 def main():
     import numpy as np
     import torch
@@ -159,7 +329,7 @@ def main():
 
     # ---- 1 build
     t = time.perf_counter()
-    builds = {stem: _build.build(stem) for stem in _build.SOURCES}
+    builds = _build.build()
     build_s = time.perf_counter() - t
     for stem, info in builds.items():
         regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
@@ -167,7 +337,8 @@ def main():
                      + " | ".join(regs))
     log("build", f"total {build_s:.2f} s into {_build.BUILD_DIR}")
     assert build_s <= BUILD_BUDGET_S, f"build took {build_s:.1f} s > {BUILD_BUDGET_S} s"
-    _build.load()
+    for stem in _build.SOURCES:
+        _build.load(stem)
 
     # ---- 2 kernels against their plain versions, on buckling-96's frame
     cfg = SolverConfig(octree_levels=4, tolerance=1e-4)
@@ -176,13 +347,14 @@ def main():
     cfg_lv = SolverConfig(octree_levels=lv, tolerance=1e-4)
     sys_ = solver.build_system(state, dt, cfg_lv, device=dev, bboxes=windows, pad_levels=4)
     assert sys_.impl == "cuda", sys_.impl
+    assert sys_.modes == ["fused"] * lv, sys_.modes
     enh = cfg.use_enhanced_gradients
     apply_k = sys_.apply_A
     apply_p, _, _ = fa.make_fused_operator(sys_.frame, sys_.canons, sys_.active,
                                            sys_.res_per_level, state.dx, enh, plain=True)
     metas = apply_k.metas
     log("kernels", f"{lv} levels, windows {windows}, canonical boxes "
-                   f"{[m.shape for m in metas]}")
+                   f"{[m.shape for m in metas]}, routes {sys_.modes}")
     gen = torch.Generator(device="cpu").manual_seed(0)
     u_log = {k: torch.randn(m.shape, generator=gen).to(dev) * m for k, m in sys_.active.items()}
     u = sys_.embed_tree(u_log)
@@ -197,7 +369,7 @@ def main():
     dt_abs, dt_rel = max_rel_err(
         (f"level {l} {n}", outs_k[l][n], outs_p[l][n]) for l in range(lv) for n in outs_p[l])
     got = apply_k(u)
-    want = apply_p(u)
+    want = want_p = apply_p(u)
     v1 = sys_.apply_v1(u_log)
     torch.cuda.synchronize()
     app_abs, app_rel = max_rel_err((f"apply {k}", got[k], want[k]) for k in want)
@@ -216,17 +388,62 @@ def main():
     apply_plain_ms = cuda_ms(lambda: apply_p(u), 5)
     nbytes = fa.kernel_bytes(metas)
     flops = fa.kernel_flops(metas, enh)
-    bounds = {}
-    for name in ("fused_tau", "fused_dt"):
-        b_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
-        f_ms = flops[name] / FP32_FLOPS_PER_S * 1e3
-        bounds[name] = (max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations")
+    bounds = {"fused_tau": bound(nbytes["tau"], flops["tau"]),
+              "fused_dt": bound(nbytes["dt"], flops["dt"])}
     log("kernels", f"per apply: fused_tau {tau_ms:.4f} ms (plain {tau_plain_ms:.3f} ms, bound "
-                   f"{bounds['fused_tau'][0]:.4f} ms = {nbytes['fused_tau'] / 1e6:.1f} MB), "
+                   f"{bounds['fused_tau'][0]:.4f} ms = {nbytes['tau'] / 1e6:.1f} MB), "
                    f"fused_dt {dt_ms:.4f} ms (plain {dt_plain_ms:.3f} ms, bound "
-                   f"{bounds['fused_dt'][0]:.4f} ms = {nbytes['fused_dt'] / 1e6:.1f} MB); whole "
+                   f"{bounds['fused_dt'][0]:.4f} ms = {nbytes['dt'] / 1e6:.1f} MB); whole "
                    f"apply with glue {apply_ms:.4f} ms (plain {apply_plain_ms:.3f} ms) | {smi}")
-    del taus_k, taus_p, outs_k, outs_p, got, want, v1, cropped, args, u, sys_, apply_k, apply_p
+
+    # the library yardstick: one cuSPARSE CSR product computes the apply
+    lib_ms, lib_y, export_s, nnz = csr_yardstick(sys_, u_log, range(lv), reps)
+    lib_abs, lib_rel = max_rel_err((f"CSR A @ x vs apply {k}", cropped[k], lib_y[k])
+                                   for k in lib_y)
+    log("kernels", f"library: CSR A @ x {lib_ms:.4f} ms per apply ({nnz} nonzeros, export "
+                   f"{export_s:.2f} s on the host), vs the kernels' apply max abs {lib_abs:.3e} "
+                   f"(rel {lib_rel:.2e}) | {smi}")
+    del taus_k, outs_k, outs_p, got, want, cropped, lib_y
+
+    # ---- 2b every route on the same frame
+    cx = [c.shape[0] for c in sys_.canons]
+    third = [max(2, (n // 3) & ~1) for n in cx]    # >= 3 bricks per level
+    route_sets = {
+        "brick/split/fused": [("brick", third[0]), "split", "fused"],
+        "split/brick/fused": ["split", ("brick", third[1]), "fused"],
+        "all brick": [("brick", t) for t in third],
+    }
+    route_err = {"tau_level": (0.0, 0.0), "dt_level": (0.0, 0.0)}
+    for name, modes in route_sets.items():
+        canons = fa.route_canons(sys_.canons, modes)
+        for c, m in zip(canons, modes):
+            assert m in ("fused", "split") or len(c.row_ranges()) >= 3, (name, m, c)
+        apply_r, _, _ = fa.make_fused_operator(sys_.frame, canons, sys_.active,
+                                               sys_.res_per_level, state.dx, enh, modes=modes)
+        args_r = apply_r.level_args(u)
+        times = []
+        for l, m in enumerate(modes):
+            if m == "fused":
+                continue
+            (ta, tr), (da, dr) = level_pair_errors(args_r[l], metas[l], canons[l], enh)
+            route_err["tau_level"] = max(route_err["tau_level"], (ta, tr))
+            route_err["dt_level"] = max(route_err["dt_level"], (da, dr))
+            t_ms, d_ms = time_level_pair(args_r[l], metas[l], canons[l], enh, 10)
+            times.append(f"level {l} {m}: {len(canons[l].row_ranges())} ranges, tau_level "
+                         f"{t_ms:.4f} ms, dt_level {d_ms:.4f} ms per apply")
+        got_r = apply_r(u)
+        pads_zero(got_r, sys_.res_per_level, canons, name)
+        r_abs, r_rel = max_rel_err((f"{name} apply vs plain {k}", got_r[k], want_p[k])
+                                   for k in want_p)
+        cr = sys_.crop_tree(got_r)
+        v_abs, v_rel = max_rel_err((f"{name} apply vs v1 {k}", cr[k], v1[k]) for k in v1)
+        log("routes", f"{name} {modes}: apply vs plain {r_abs:.3e} (rel {r_rel:.2e}), vs "
+                      f"whole-array v1 {v_abs:.3e} (rel {v_rel:.2e}), pads exactly 0 | "
+                      + "; ".join(times))
+    log("routes", f"level kernels vs plain over every route: tau_level max abs "
+                  f"{route_err['tau_level'][0]:.3e} (rel {route_err['tau_level'][1]:.2e}), "
+                  f"dt_level {route_err['dt_level'][0]:.3e} (rel {route_err['dt_level'][1]:.2e})")
+    del taus_p, v1, args, u, u_log, want_p, sys_, apply_k, apply_p
 
     # ---- 3 solve: the main path, through make_solver
     solve = solver.make_solver(cfg, device=dev)
@@ -246,8 +463,10 @@ def main():
     assert st.regular_dofs == EXPECT["regular_dofs"], st.regular_dofs
     assert abs(st.iterations - EXPECT["iterations"]) <= 2, st.iterations
     assert st.residual <= 1e-4, st.residual
-    for name, n in launches.items():
-        assert n >= st.applies >= st.iterations + 1, (name, n, st.applies)
+    for name in ("fused_tau", "fused_dt"):
+        assert launches[name] >= st.applies >= st.iterations + 1, (name, launches, st.applies)
+    # buckling-96's weighted stresses fit the L2 budget: every level fused
+    assert launches["tau_level"] == launches["dt_level"] == 0, launches
     for a, v in enumerate(res.velocity):
         assert tuple(v.shape) == tuple(N + (1 if d == a else 0) for d in range(3)), v.shape
         assert bool(torch.isfinite(v).all()), f"velocity {a} not finite"
@@ -336,21 +555,206 @@ def main():
     assert abs(got_s.stats.iterations - want_s.stats.iterations) <= 2
     assert diff / scale < 5e-4
 
+    # ---- 5 buckling-192: the large-grid path through make_solver
+    n2 = 192
+    st2 = scenes.buckling(n=n2, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t = time.perf_counter()
+    res2 = solve(st2, dt)
+    for v in res2.velocity:
+        v.sum().item()
+    cold2_s = time.perf_counter() - t
+    launches2 = dict(fa.launch_counts)
+    peak2 = torch.cuda.max_memory_allocated()
+    st_2 = res2.stats
+    lv2, win2 = solver.probe_topology(st2, cfg, device=dev)
+    sys2 = solver.build_system(st2, dt, SolverConfig(octree_levels=lv2, tolerance=1e-4),
+                               device=dev, bboxes=win2, pad_levels=4)
+    modes2 = sys2.modes
+    budget = fa.route_budget(dev)
+    log("192", f"cold frame {cold2_s:.3f} s (peak {peak2 / 2**30:.2f} GiB): {st_2} | launches "
+               f"{launches2} | routes {modes2} "
+               f"(budget {budget / 2**20:.1f} MiB of weighted stress = {fa.L2_SHARE} x L2 "
+               f"{torch.cuda.get_device_properties(dev).L2_cache_size / 2**20:.1f} MiB), "
+               f"windows {win2}, canonical boxes {[c.shape for c in sys2.canons]}, weighted "
+               f"stress per level {[round(fa.tau_bytes(c) / 2**20, 1) for c in sys2.canons]} MiB")
+    assert st_2.solve_path == "cuda", st_2.solve_path
+    assert len(st_2.active_cells) == EXPECT_192["levels"], st_2.active_cells
+    assert st_2.octree_dofs == EXPECT_192["octree_dofs"], st_2.octree_dofs
+    assert st_2.regular_dofs == EXPECT_192["regular_dofs"], st_2.regular_dofs
+    assert abs(st_2.iterations - EXPECT_192["iterations"]) <= 2, st_2.iterations
+    assert st_2.residual <= 1e-4, st_2.residual
+    assert launches2["tau_level"] > 0 and launches2["dt_level"] > 0, launches2
+    ranges2 = sum(len(c.row_ranges()) for c, m in zip(sys2.canons, modes2) if m != "fused")
+    for name in ("tau_level", "dt_level"):
+        assert launches2[name] == st_2.applies * ranges2, (name, launches2, st_2.applies)
+    for a, v in enumerate(res2.velocity):
+        assert tuple(v.shape) == tuple(n2 + (1 if d == a else 0) for d in range(3)), v.shape
+        assert bool(torch.isfinite(v).all()), f"192: velocity {a} not finite"
+    warm2 = []
+    for _ in range(2):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = solve(st2, dt)
+        stop.record()
+        torch.cuda.synchronize()
+        warm2.append(start.elapsed_time(stop))
+        assert r.stats.iterations == st_2.iterations
+    stages2 = {}
+    solve(st2, dt, stage_times=stages2)
+    log("192", f"warm frames {['%.2f' % w for w in warm2]} ms | stages (synchronized) "
+               + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in stages2.items())
+               + f" | CG {st_2.iterations} iterations, {st_2.applies} applies | {smi}")
+
+    # the level kernels against their plain versions at the main path's shapes
+    metas2 = sys2.apply_A.metas
+    routed2 = [l for l, m in enumerate(modes2) if m != "fused"]
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    u2_log = {k: torch.randn(m.shape, generator=gen).to(dev) * m for k, m in sys2.active.items()}
+    u2 = sys2.embed_tree(u2_log)
+    args2 = sys2.apply_A.level_args(u2)
+    lvl_err = {"tau_level": (0.0, 0.0), "dt_level": (0.0, 0.0)}
+    lvl_ms = {"tau_level": 0.0, "dt_level": 0.0}
+    lvl_plain_ms = {"tau_level": 0.0, "dt_level": 0.0}
+    for l in routed2:
+        e_tau, e_dt = level_pair_errors(args2[l], metas2[l], sys2.canons[l], enh)
+        lvl_err = {"tau_level": max(lvl_err["tau_level"], e_tau),
+                   "dt_level": max(lvl_err["dt_level"], e_dt)}
+        t_ms, d_ms = time_level_pair(args2[l], metas2[l], sys2.canons[l], enh, 20)
+        tp_ms, dp_ms = time_level_pair(args2[l], metas2[l], sys2.canons[l], enh, 1, plain=True)
+        lvl_ms["tau_level"] += t_ms
+        lvl_ms["dt_level"] += d_ms
+        lvl_plain_ms["tau_level"] += tp_ms
+        lvl_plain_ms["dt_level"] += dp_ms
+    # the library yardstick of the level pair: the system of the routed
+    # levels' stress blocks (and their mass), one CSR product
+    lib2_ms, _, export2_s, nnz2 = csr_yardstick(sys2, u2_log, routed2, 20)
+    nb2 = fa.kernel_bytes([metas2[l] for l in routed2])
+    nf2 = fa.kernel_flops([metas2[l] for l in routed2], enh)
+    bounds["tau_level"] = bound(nb2["tau"], nf2["tau"])
+    bounds["dt_level"] = bound(nb2["dt"], nf2["dt"])
+    log("192", f"level kernels on levels {routed2} vs plain: tau_level max abs "
+               f"{lvl_err['tau_level'][0]:.3e} (rel {lvl_err['tau_level'][1]:.2e}), dt_level "
+               f"{lvl_err['dt_level'][0]:.3e} (rel {lvl_err['dt_level'][1]:.2e}); per apply "
+               f"tau_level {lvl_ms['tau_level']:.4f} ms (plain {lvl_plain_ms['tau_level']:.2f} "
+               f"ms, bound {bounds['tau_level'][0]:.4f} ms = {nb2['tau'] / 1e6:.1f} MB), "
+               f"dt_level {lvl_ms['dt_level']:.4f} ms (plain {lvl_plain_ms['dt_level']:.2f} ms, "
+               f"bound {bounds['dt_level'][0]:.4f} ms = {nb2['dt'] / 1e6:.1f} MB); library: CSR "
+               f"A @ x of those levels' blocks {lib2_ms:.4f} ms ({nnz2} nonzeros, export "
+               f"{export2_s:.2f} s on the host) | {smi}")
+
+    # A/B on the same frame: the default routes against every level fused
+    fused_modes = ["fused"] * lv2
+    apply_f, _, _ = fa.make_fused_operator(sys2.frame, fa.route_canons(sys2.canons, fused_modes),
+                                           sys2.active, sys2.res_per_level, st2.dx, enh,
+                                           modes=fused_modes)
+    got_d, got_f = sys2.apply_A(u2), apply_f(u2)
+    pads_zero(got_d, sys2.res_per_level, sys2.canons, "192 default routes")
+    ab_abs, ab_rel = max_rel_err((f"192 routes vs fused {k}", got_d[k], got_f[k]) for k in got_f)
+    del got_d, got_f
+    ab = {"default": [], "fused": []}
+    for name in ("default", "fused", "fused", "default"):
+        fn = sys2.apply_A if name == "default" else apply_f
+        ab[name].append(cuda_ms(lambda: fn(u2), 10))
+    # level 0 alone on three routes: its weighted stresses through device
+    # memory in the all-level kernels (fused) and in the level kernels
+    # (split), and through the L2-sized scratch (the default bricks)
+    l0_fused = time_fused_levels(args2[:1], metas2[:1], enh, 20)
+    l0_split = time_level_pair(args2[0], metas2[0],
+                               dataclasses.replace(sys2.canons[0], brick=None), enh, 20)
+    l0_routed = time_level_pair(args2[0], metas2[0], sys2.canons[0], enh, 20)
+    log("192", f"A/B, routes {modes2} vs every level fused: applies agree to {ab_abs:.3e} "
+               f"(rel {ab_rel:.2e}); whole apply default {ab['default']} ms, fused "
+               f"{ab['fused']} ms; level 0 alone, per apply: {modes2[0]} tau_level "
+               f"{l0_routed[0]:.4f} + dt_level {l0_routed[1]:.4f} ms, split tau_level "
+               f"{l0_split[0]:.4f} + dt_level {l0_split[1]:.4f} ms, fused_tau {l0_fused[0]:.4f} "
+               f"+ fused_dt {l0_fused[1]:.4f} ms | {smi}")
+    del sys2, apply_f, args2, u2, u2_log, res2, r
+
+    # ---- 6 buckling-256: default routes against every level fused
+    n3 = 256
+    st3 = scenes.buckling(n=n3, device=dev)
+    lv3, win3 = solver.probe_topology(st3, cfg, device=dev)
+    res3 = [tuple(s >> l for s in solver.padded_shape(tuple(st3.liquid_sdf.shape), 4))
+            for l in range(lv3)]
+    modes3 = fa.level_modes(fa.level_canons(res3, win3), fa.route_budget(dev))
+    frames3 = {}
+    route_budget = fa.route_budget
+    for name in ("default", "fused"):
+        if name == "fused":
+            fa.route_budget = lambda device: math.inf
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+            stages3 = {}
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            r3 = solve(st3, dt, stage_times=stages3)
+            stop.record()
+            torch.cuda.synchronize()
+            frames3[name] = (r3, start.elapsed_time(stop), dict(fa.launch_counts),
+                             torch.cuda.max_memory_allocated())
+            log("256", f"{name} routes, stages (synchronized) "
+                       + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in stages3.items()))
+        finally:
+            fa.route_budget = route_budget
+    (rd, msd, lcd, memd), (rf, msf, lcf, memf) = frames3["default"], frames3["fused"]
+    log("256", f"routes {modes3}, windows {win3}, weighted stress per level "
+               f"{[round(fa.tau_bytes(c) / 2**20, 1) for c in fa.level_canons(res3, win3)]} MiB | "
+               f"default: {msd:.1f} ms frame, {rd.stats}, launches {lcd}, peak "
+               f"{memd / 2**30:.2f} GiB | every level fused: {msf:.1f} ms, {rf.stats}, launches "
+               f"{lcf}, peak {memf / 2**30:.2f} GiB | {smi}")
+    assert "split" in modes3 and any(isinstance(m, tuple) for m in modes3), modes3
+    assert lcd["tau_level"] > 0 and lcd["dt_level"] > 0, lcd
+    assert lcf["tau_level"] == 0 and lcf["fused_tau"] == rf.stats.applies, lcf
+    assert rd.stats.solve_path == rf.stats.solve_path == "cuda"
+    assert (rd.stats.octree_dofs, rd.stats.regular_dofs) == (rf.stats.octree_dofs,
+                                                             rf.stats.regular_dofs)
+    assert abs(rd.stats.iterations - rf.stats.iterations) <= 2
+    assert rd.stats.residual <= 1e-4 and rf.stats.residual <= 1e-4
+    scale3 = max(float(v.abs().max()) for v in rf.velocity)
+    diff3 = max(float((a - b).abs().max()) for a, b in zip(rd.velocity, rf.velocity))
+    assert bool(all(torch.isfinite(v).all() for v in rd.velocity))
+    assert diff3 / scale3 < 5e-4, diff3 / scale3
+    log("256", f"default routes vs every level fused: velocity max diff / scale "
+               f"{diff3 / scale3:.2e}, iterations {rd.stats.iterations} vs {rf.stats.iterations}")
+
+    measured = {
+        "fused_tau": (launches["fused_tau"], tau_abs, tau_ms, tau_plain_ms, lib_ms),
+        "fused_dt": (launches["fused_dt"], dt_abs, dt_ms, dt_plain_ms, lib_ms),
+        "tau_level": (launches2["tau_level"], lvl_err["tau_level"][0], lvl_ms["tau_level"],
+                      lvl_plain_ms["tau_level"], lib2_ms),
+        "dt_level": (launches2["dt_level"], lvl_err["dt_level"][0], lvl_ms["dt_level"],
+                     lvl_plain_ms["dt_level"], lib2_ms),
+    }
     kernels = []
-    for name, src_err, ms, plain_ms in (("fused_tau", tau_abs, tau_ms, tau_plain_ms),
-                                        ("fused_dt", dt_abs, dt_ms, dt_plain_ms)):
+    for name, (n_launch, err, ms, plain_ms, library_ms) in measured.items():
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "adaptiveviscositysolver_tpu_torch/csrc/fused_apply.cu",
-            "replaces": REPLACES, "launches": launches[name], "max_abs_err": src_err,
+            "source": f"adaptiveviscositysolver_tpu_torch/csrc/{SOURCE[name]}",
+            "replaces": REPLACES[name], "launches": n_launch, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1], "library_ms": None,
+            "bound_by": bounds[name][1], "library_ms": library_ms,
         })
     print(json.dumps({"result": {
         "warm_frame_ms_median": statistics.median(warm), "cold_frame_s": cold_s,
         "build_s": build_s, "cg_iterations": st.iterations, "octree_dofs": st.octree_dofs,
         "regular_dofs": st.regular_dofs, "levels": len(st.active_cells),
-        "apply_ms": apply_ms, "apply_plain_ms": apply_plain_ms,
+        "apply_ms": apply_ms, "apply_plain_ms": apply_plain_ms, "library_apply_ms": lib_ms,
+        "export_s": export_s,
+        "b192": {"routes": [str(m) for m in modes2], "cold_frame_s": cold2_s,
+                 "warm_frame_ms": warm2, "cg_iterations": st_2.iterations,
+                 "peak_gib": peak2 / 2**30,
+                 "octree_dofs": st_2.octree_dofs, "regular_dofs": st_2.regular_dofs,
+                 "apply_ms_default": ab["default"], "apply_ms_fused": ab["fused"],
+                 "library_level_ms": lib2_ms, "export_s": export2_s,
+                 "level0_ms": {"routed": l0_routed, "split": l0_split, "fused": l0_fused}},
+        "b256": {"routes": [str(m) for m in modes3], "frame_ms": {"default": msd, "fused": msf},
+                 "cg_iterations": [rd.stats.iterations, rf.stats.iterations],
+                 "peak_gib": {"default": memd / 2**30, "fused": memf / 2**30}},
         "wall_s": time.perf_counter() - T0}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

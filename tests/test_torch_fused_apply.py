@@ -208,12 +208,14 @@ def test_frame_data_matches_jax(fused_case):
 
 
 # A host loop over the kernels' per-point math (csrc/fused_apply.cuh is
-# __host__ __device__): the same arithmetic the CUDA kernels run, one point
-# after another, so its algebra is checked here without a card.
+# __host__ __device__): the same arithmetic and thread-to-sample mapping the
+# CUDA kernels run, one thread after another, so the algebra and the level
+# and brick addressing are checked here without a card.
 HOST_LOOP = r"""
 #include "fused_apply.cuh"
 extern "C" {
 long long host_frame_bytes() { return (long long)sizeof(AvsFrame); }
+long long host_level_bytes() { return (long long)sizeof(AvsLevel); }
 void host_tau(const AvsFrame* F) {
   for (long long g = 0; g < F->total; ++g) {
     int p[3]; int l = avs::locate(*F, g, p); avs::tau_point(F->lv[l], p, F->enhanced != 0);
@@ -222,6 +224,16 @@ void host_tau(const AvsFrame* F) {
 void host_dt(const AvsFrame* F) {
   for (long long g = 0; g < F->total; ++g) {
     int p[3]; int l = avs::locate(*F, g, p); avs::dt_point(F->lv[l], p, F->enhanced != 0);
+  }
+}
+void host_tau_level(const AvsLevel* L, int enhanced) {
+  for (long long t = 0; t < L->count; ++t) {
+    int p[3]; avs::sample_of(*L, t, p); avs::tau_point<false>(*L, p, enhanced != 0);
+  }
+}
+void host_dt_level(const AvsLevel* L, int enhanced) {
+  for (long long t = 0; t < L->count; ++t) {
+    int p[3]; avs::sample_of(*L, t, p); avs::dt_point<false>(*L, p, enhanced != 0);
   }
 }
 }
@@ -239,15 +251,28 @@ def host_kernels(tmp_path_factory):
                     str(d / "libhost.so"), str(d / "host_loop.cpp")], check=True,
                    capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(d / "libhost.so"))
-    lib.host_frame_bytes.restype = ctypes.c_longlong
+    lib.host_frame_bytes.restype = lib.host_level_bytes.restype = ctypes.c_longlong
     lib.host_tau.argtypes = lib.host_dt.argtypes = [ctypes.c_void_p]
+    lib.host_tau_level.argtypes = lib.host_dt_level.argtypes = [ctypes.c_void_p, ctypes.c_int]
     assert lib.host_frame_bytes() == (fa.MAX_LEVELS * fa._LEVEL_WORDS + 3) * 8
+    assert lib.host_level_bytes() == fa._LEVEL_WORDS * 8
     return lib
+
+
+def _close(got, want, what):
+    assert set(got) == set(want)
+    for n in want:
+        scale = max(want[n].abs().max().item(), 1e-30)
+        err = (got[n] - want[n]).abs().max().item()
+        assert err <= 3e-5 * scale, (what, n, err, scale)
 
 
 def test_kernel_math_on_host_matches_plain(fused_case, host_kernels):
     """csrc's tau_point / dt_point, compiled for the CPU and fed the same
-    descriptor words the CUDA launch gets, equal tau_plain / dt_plain."""
+    descriptor words the CUDA launches get, equal tau_plain / dt_plain: the
+    all-level launches, and the level launches over a whole level
+    ("split") and brick by brick (4-row bricks; the scratch of each holds
+    the brick plus the halo, from its own first row)."""
     c, s = fused_case, fused_case["sys"]
     enh = c["case"]["cfg"].use_enhanced_gradients
     apply_A, embed_tree, _ = fa.make_fused_operator(c["frame"], c["canons"], s["active"],
@@ -268,12 +293,23 @@ def test_kernel_math_on_host_matches_plain(fused_case, host_kernels):
     want_t = fa._plain_tau(args, metas, enh)
     want_o = fa._plain_dt(args, taus, metas, enh)
     for l in range(len(metas)):
-        for got, want in ((taus[l], want_t[l]), (outs[l], want_o[l])):
-            assert set(got) == set(want)
-            for n in want:
-                scale = max(want[n].abs().max().item(), 1e-30)
-                err = (got[n] - want[n]).abs().max().item()
-                assert err <= 3e-5 * scale, (c["kind"], l, n, err, scale)
+        _close(taus[l], want_t[l], (c["kind"], l))
+        _close(outs[l], want_o[l], (c["kind"], l))
+    for l, (a, meta, canon) in enumerate(zip(args, metas, c["canons"])):
+        for brick in (None, 4):
+            out = fa.dt_outputs(meta, "cpu")
+            for rows in dataclasses.replace(canon, brick=brick).row_ranges():
+                t0, t1 = fa.tau_rows(rows, meta.shape[0])
+                tau = {n: torch.empty((t1 - t0,) + meta.shape[1:]) for n in fa.TAU_NAMES}
+                words = fa._level_words({**a, **tau}, meta, rows=(t0, t1), tau_x0=t0,
+                                        tau_nx=t1 - t0)
+                host_kernels.host_tau_level(words.ctypes.data, int(enh))
+                _close(tau, {n: want_t[l][n][t0:t1] for n in fa.TAU_NAMES},
+                       (c["kind"], l, brick, rows))
+                words = fa._level_words({**a, **tau, **out}, meta, rows=rows, tau_x0=t0,
+                                        tau_nx=t1 - t0)
+                host_kernels.host_dt_level(words.ctypes.data, int(enh))
+            _close(out, want_o[l], (c["kind"], l, brick))
 
 
 @pytest.mark.parametrize("f", [0, 1, 2])
@@ -316,14 +352,15 @@ def test_wrappers_take_the_plain_version_only_on_cpu():
 
 def test_kernel_bytes_count_the_logical_window():
     """The byte bound counts each level's window (cells + closing face
-    row), whatever the canonical pad: one uncropped 4^3 level by hand, and a
-    cropped two-level pair below the same pair uncropped."""
+    row), whatever the canonical pad: one uncropped 4^3 level by hand, a
+    cropped two-level pair below the same pair uncropped, and a level's
+    bricks summing to the level (the halo rows are not the work's)."""
     (meta,) = fa.level_metas([fa.make_canon((4, 4, 4))], 0.5)
     assert meta.win == (4, 4, 4) and meta.shape != meta.win
     face, edge, cell, node = 3 * 5 * 16, 3 * 4 * 25, 64, 125
     assert fa.kernel_bytes([meta]) == {
-        "fused_tau": 4 * face + 4 * (edge + cell) + 3 * node + 4 * (edge + 3 * cell),
-        "fused_dt": 4 * (edge + 3 * cell) + 8 * face + 3 * node + 4 * face}
+        "tau": 4 * face + 4 * (edge + cell) + 3 * node + 4 * (edge + 3 * cell),
+        "dt": 4 * (edge + 3 * cell) + 8 * face + 3 * node + 4 * face}
     canons = [fa.make_canon((16, 16, 16), ((2, 12), (4, 16), (0, 10))),
               fa.make_canon((8, 8, 8), ((0, 6), (2, 8), (0, 6)))]
     metas = fa.level_metas(canons, 0.5)
@@ -331,6 +368,12 @@ def test_kernel_bytes_count_the_logical_window():
     both = fa.kernel_bytes(metas)
     assert all(both[k] < fa.kernel_bytes([dataclasses.replace(m, win=(16 >> m.level,) * 3)
                                           for m in metas])[k] for k in both)
+    for brick in (2, 4, 6):
+        ranges = dataclasses.replace(canons[0], brick=brick).row_ranges()
+        for count in (fa.kernel_bytes, lambda ms, rows=None: fa.kernel_flops(ms, True, rows)):
+            parts = [count(metas[:1], rows) for rows in ranges]
+            assert {k: sum(p[k] for p in parts) for k in ("tau", "dt")} == count(metas[:1])
+    assert fa.kernel_bytes(metas[:1], (0, fa.PAD)) == {"tau": 0, "dt": 0}
 
 
 def test_descriptor_layout_matches_header():
@@ -343,12 +386,11 @@ def test_descriptor_layout_matches_header():
             m = re.search(r"(\w+)(?:\[(\d+)\])?\s*$", var.strip())
             name, count = m.group(1), int(m.group(2) or 1)
             words += [f"{name}{i}" if count > 1 else name for i in range(count)]
-    ptrs = [w for w in words if not w.startswith(("cx", "cy", "cz", "start", "count", "has_",
-                                                   "inv_", "reserved"))]
+    ptrs = words[:len(fa._PTR_FIELDS)]
     # header names: u0.. up0.. cs0.. kp0.. we0.. wc m0.. wte0.. wtc0.. out0.. zp0.. zc0..
     assert ptrs == fa._PTR_FIELDS
     assert words[35:] == ["cx", "cy", "cz", "start", "count", "has_parent", "has_child",
-                          "inv_dxw", "reserved"]
+                          "inv_dxw", "row0", "tau_x0", "tau_nx"]
     assert len(words) == fa._LEVEL_WORDS
     assert re.search(r"#define AVS_MAX_LEVELS (\d+)", src).group(1) == str(fa.MAX_LEVELS)
 
