@@ -7,15 +7,18 @@
 //   B5 _level_kernel's bricked branch (:751-843), which runs B3/B4 on
 //      y-bricks of a plane too large for the TPU's VMEM.
 // On the TPU the routes exist because a program's working set must fit
-// VMEM.  Here they exist for the card's L2 cache (50 MB on the H100): the
-// all-level fused_tau/fused_dt pair writes the six weighted-stress planes
-// wte/wtc of every level to device memory and reads them back.  A level
-// whose planes exceed the L2 budget runs
+// VMEM.  Here they exist to port B3-B5: the routing (fused_apply.py
+// level_modes) picks them as the JAX policy does, with the card's L2 cache
+// (50 MB on the H100) in place of VMEM.  A level whose six weighted-stress
+// planes wte/wtc exceed that budget runs
 //   "split": tau_level over the whole level, then dt_level, or
 //   "brick": for each brick of x rows, tau_level over the brick plus a
 //            2-row halo into one bounded scratch, then dt_level on the
-//            brick's rows,
-// so the round trip of the weighted stresses stays within the L2 budget.
+//            brick's rows.
+// Keeping the weighted stresses within the L2 showed no measured benefit:
+// split, whose stresses go through device memory, ties the bricks on an
+// H100 (PERF.md section 6); these kernels beat the all-level pair by their
+// form.
 // x is bricked because it is the outermost axis of the canonical boxes: a
 // brick of rows is one contiguous slab of every array.
 //

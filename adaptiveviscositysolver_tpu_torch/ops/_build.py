@@ -29,11 +29,6 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 # library stem -> (main source, headers it includes)
 SOURCES = {"fused_apply": ("fused_apply.cu", ("fused_apply.cuh",)),
            "level_apply": ("level_apply.cu", ("fused_apply.cuh",))}
-# library stem -> (entry points taking (descriptor, threads, stream) or
-# (descriptor, threads, enhanced, stream), layout probe)
-_ENTRIES = {"fused_apply": (("avs_tau_launch", "avs_dt_launch"), (), "avs_frame_bytes"),
-            "level_apply": ((), ("avs_tau_level_launch", "avs_dt_level_launch"),
-                            "avs_level_bytes")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, dict] = {}
@@ -87,22 +82,11 @@ def build(*stems: str) -> Dict[str, dict]:
     return {stem: build_log[stem] for stem in stems}
 
 
-def load(stem: str = "fused_apply") -> ctypes.CDLL:
-    """The loaded library (built first if missing), argtypes set."""
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library (built first if missing).  The modules that call
+    its entry points declare their argument types."""
     lib = _loaded.get(stem)
-    if lib is not None:
-        return lib
-    build(stem)
-    lib = ctypes.CDLL(str(library_path(stem)))
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    frame_fns, level_fns, probe = _ENTRIES[stem]
-    getattr(lib, probe).argtypes = []
-    getattr(lib, probe).restype = ll
-    for name in frame_fns:
-        getattr(lib, name).argtypes = [vp, ll, vp]
-        getattr(lib, name).restype = ctypes.c_int
-    for name in level_fns:
-        getattr(lib, name).argtypes = [vp, ll, ctypes.c_int, vp]
-        getattr(lib, name).restype = ctypes.c_int
-    _loaded[stem] = lib
+    if lib is None:
+        build(stem)
+        lib = _loaded[stem] = ctypes.CDLL(str(library_path(stem)))
     return lib

@@ -32,12 +32,18 @@ and (``csrc/level_apply.cu``), replacing ``_make_tau_kernel`` (:846),
 * ``dt_level``  -- the D^T pass of one level over a range of x rows,
   reading such a scratch.
 
-Routing (``level_modes``): the fused pair writes every level's weighted
-stresses to device memory and reads them back.  The levels whose stresses
-fit the card's L2 budget together run "fused"; a finer level that fits
-alone runs "split" (the level pair over the whole level); one that does not
-runs ``("brick", T)``: for each brick of T x rows, ``tau_level`` over the
-brick plus a ``TAU_HALO`` row halo, then ``dt_level`` on the brick.
+Routing (``level_modes``): the three routes are the counterparts of the
+JAX package's (B1/B2 fused, B3/B4 split, B5 bricked), picked as its
+``level_modes`` picks them, with the card's L2 cache in place of the TPU's
+VMEM limit.  The levels whose weighted stresses fit the budget together
+run "fused"; a finer level that fits alone runs "split" (the level pair
+over the whole level); one that does not runs ``("brick", T)``: for each
+brick of T x rows, ``tau_level`` over the brick plus a ``TAU_HALO`` row
+halo, then ``dt_level`` on the brick.  The budget showed no measured
+benefit on the H100: level 0 of buckling-192 runs as fast split, its
+weighted stresses through device memory, as bricked within the L2
+(PERF.md section 6).  What is faster than the fused pair is the level
+kernels' form, not the cache.
 
 All four are bound by device-memory bytes (see ``kernel_bytes``).  Each
 wrapper runs its kernel on CUDA tensors and the plain PyTorch version of
@@ -49,7 +55,9 @@ adjoints, plain PyTorch), as in the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -78,7 +86,8 @@ TAU_NAMES = ("wte0", "wte1", "wte2", "wtc0", "wtc1", "wtc2")
 # D^T halo is)
 TAU_HALO = 2
 # share of the L2 cache the routing lets one tau round trip fill (the JAX
-# level_modes keeps the same margin against its VMEM limit)
+# level_modes keeps the same margin against its VMEM limit); the routing's
+# stand-in for the VMEM limit, not a measured optimum
 L2_SHARE = 0.9
 
 UField = Dict[Tuple[int, int], torch.Tensor]
@@ -173,7 +182,11 @@ def level_modes(canons: Sequence[Canon], budget_bytes: float) -> List[Mode]:
     together; each finer level runs "split" if its own fit, else
     ``("brick", T)`` with T the largest even row count whose scratch (T
     plus the halo rows) fits.  Every level gets a route: a brick of 2 rows
-    always runs."""
+    always runs.
+
+    The routes exist to port B3-B5; the budget that picks them is the JAX
+    policy's analogue and bought nothing measurable on the H100 (split ties
+    the bricks, PERF.md section 6)."""
     levels = len(canons)
     modes: List[Mode] = [""] * levels
     group, l = 0, levels
@@ -192,7 +205,8 @@ def level_modes(canons: Sequence[Canon], budget_bytes: float) -> List[Mode]:
 
 def route_budget(device) -> float:
     """Bytes of weighted stress one route may round-trip: ``L2_SHARE`` of
-    the card's L2 cache.  The plain versions on the CPU have no cache to
+    the card's L2 cache (the analogue of the JAX routing's VMEM limit; see
+    :func:`level_modes`).  The plain versions on the CPU have no cache to
     fit: unbounded, so every level runs fused (pass a budget to
     :func:`level_modes` to force another route)."""
     device = torch.device(device)
@@ -631,12 +645,36 @@ def _frame(levels, metas, enhanced: bool):
     return words, start
 
 
-def _launch(entry: str, levels, metas, enhanced: bool) -> None:
+@functools.lru_cache(maxsize=None)
+def _library(stem: str) -> ctypes.CDLL:
+    """``csrc/<stem>.cu``'s library, built at first use, with the argument
+    types of its entry points set and its descriptor layout checked
+    against this module's.  ``fused_apply``: ``avs_tau_launch`` /
+    ``avs_dt_launch`` (device descriptor, threads, stream);
+    ``level_apply``: ``avs_tau_level_launch`` / ``avs_dt_level_launch``
+    (host descriptor, threads, enhanced, stream)."""
     from . import _build
 
-    lib = _build.load()
-    if lib.avs_frame_bytes() != (MAX_LEVELS * _LEVEL_WORDS + 3) * 8:
-        raise RuntimeError("AvsFrame layout mismatch between csrc and Python")
+    lib = _build.load(stem)
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    if stem == "fused_apply":
+        probe, want = lib.avs_frame_bytes, (MAX_LEVELS * _LEVEL_WORDS + 3) * 8
+        entries, argtypes = ("avs_tau_launch", "avs_dt_launch"), [vp, ll, vp]
+    else:
+        probe, want = lib.avs_level_bytes, _LEVEL_WORDS * 8
+        entries = ("avs_tau_level_launch", "avs_dt_level_launch")
+        argtypes = [vp, ll, ctypes.c_int, vp]
+    probe.argtypes, probe.restype = [], ll
+    if probe() != want:
+        raise RuntimeError(f"descriptor layout mismatch between csrc/{stem}.cu and Python")
+    for name in entries:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+def _launch(entry: str, levels, metas, enhanced: bool) -> None:
+    lib = _library("fused_apply")
     words, total = _frame(levels, metas, enhanced)
     dev = levels[0]["u0"].device
     # an asynchronous copy on the current stream: from pageable memory it
@@ -650,11 +688,7 @@ def _launch(entry: str, levels, metas, enhanced: bool) -> None:
 
 
 def _launch_level(entry: str, words: np.ndarray, enhanced: bool, dev: torch.device) -> None:
-    from . import _build
-
-    lib = _build.load("level_apply")
-    if lib.avs_level_bytes() != _LEVEL_WORDS * 8:
-        raise RuntimeError("AvsLevel layout mismatch between csrc and Python")
+    lib = _library("level_apply")
     # the launch copies the descriptor into the kernel's parameters: no
     # device copy, and ``words`` may go once the call returns
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1002,6 +1036,5 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
         return outs
 
     apply_A.metas = metas
-    apply_A.modes = modes
     apply_A.level_args = level_args
     return apply_A, embed_tree, crop_tree

@@ -34,15 +34,19 @@ Phases (one line each, elapsed seconds first):
                 record_function spans), device time per op in the CG
   5 192      -- the large-grid path: make_solver on scenes.buckling(192),
                 one cold and two warm frames through the routes the card's L2
-                budget picks (launch counts read around the cold frame),
+                budget picks (launch counts read around the cold frame: each
+                kernel once per apply and x-row range of its levels),
                 checked against the JAX package's counts (4 levels, 820288 /
-                2209612 DOFs, 337 +- 2 iterations, residual <= 1e-4); the
-                level kernels against their plain versions at these shapes;
-                A/B of the default routes against every level fused
+                2209612 DOFs, 337 +- 2 iterations, residual <= 1e-4); every
+                kernel of those routes (the routed levels' bricks, the fused
+                group) against its plain version at these shapes; A/B of the
+                default routes against every level fused
   6 256      -- scenes.buckling(256): one frame on the default routes (brick
-                and split launched) against one with every level fused (an
-                unbounded budget): same DOFs, iterations +- 2, velocity
-                within rel 5e-4; peak device memory
+                and split) against one with every level fused (an unbounded
+                budget): launch counts against each frame's routes, same
+                DOFs, iterations +- 2, velocity within rel 5e-4; every kernel
+                of the default routes (level 0's bricks, level 1 split, the
+                fused group) against its plain version; peak device memory
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``.  Every failed check raises; the whole
@@ -212,6 +216,61 @@ def level_pair_errors(args, meta, canon, enh):
     return max_rel_err(tau_pairs), max_rel_err(dt_pairs)
 
 
+def fused_pair_errors(args, metas, enh, what):
+    """fused_tau and fused_dt on the card against their plain versions over
+    one group of levels (D^T fed the plain weighted stresses), per level
+    and output: the worst (abs, rel) of each kernel, and the plain
+    weighted stresses."""
+    from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
+
+    taus_k = fa.fused_tau(args, metas, enh)
+    taus_p = fa._plain_tau(args, metas, enh)
+    outs_k = fa.fused_dt(args, taus_p, metas, enh)
+    outs_p = fa._plain_dt(args, taus_p, metas, enh)
+    tau = max_rel_err((f"{what} level {m.level} {n}", k[n], p[n])
+                      for k, p, m in zip(taus_k, taus_p, metas) for n in p)
+    dt = max_rel_err((f"{what} level {m.level} {n}", k[n], p[n])
+                     for k, p, m in zip(outs_k, outs_p, metas) for n in p)
+    return tau, dt, taus_p
+
+
+def routed_errors(args, metas, canons, modes, enh, what):
+    """Every kernel of one frame's routes against its plain version: the
+    level pair on every x-row range of each split or bricked level, the
+    fused pair on the fused group.  {kernel: worst (abs, rel)}."""
+    err = {k: (0.0, 0.0) for k in ("fused_tau", "fused_dt", "tau_level", "dt_level")}
+    for l, m in enumerate(modes):
+        if m != "fused":
+            e_tau, e_dt = level_pair_errors(args[l], metas[l], canons[l], enh)
+            err["tau_level"] = worst(err["tau_level"], e_tau)
+            err["dt_level"] = worst(err["dt_level"], e_dt)
+    fused = [l for l, m in enumerate(modes) if m == "fused"]
+    if fused:
+        e_tau, e_dt, _ = fused_pair_errors([args[l] for l in fused], [metas[l] for l in fused],
+                                           enh, what)
+        err["fused_tau"], err["fused_dt"] = e_tau, e_dt
+    return err
+
+
+def check_launches(counts, applies, canons, modes, what):
+    """One frame's launch counts against its routes: the fused pair once per
+    apply if a level is fused, the level pair once per apply and x-row
+    range of every split or bricked level."""
+    from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
+
+    fused = int("fused" in modes)
+    ranges = sum(len(c.row_ranges()) for c, m in zip(fa.route_canons(canons, modes), modes)
+                 if m != "fused")
+    want = {"fused_tau": applies * fused, "fused_dt": applies * fused,
+            "tau_level": applies * ranges, "dt_level": applies * ranges}
+    assert counts == want, f"{what}: launches {counts}, want {want} ({applies} applies, {modes})"
+
+
+def worst(*errs):
+    """The worst (abs, rel) of several."""
+    return (max(e[0] for e in errs), max(e[1] for e in errs))
+
+
 def time_level_pair(args, meta, canon, enh, reps, plain=False):
     """Milliseconds per apply of one routed level's tau_level and dt_level
     launches (every x-row range, in the apply's order), from CUDA events
@@ -338,7 +397,7 @@ def main():
     log("build", f"total {build_s:.2f} s into {_build.BUILD_DIR}")
     assert build_s <= BUILD_BUDGET_S, f"build took {build_s:.1f} s > {BUILD_BUDGET_S} s"
     for stem in _build.SOURCES:
-        _build.load(stem)
+        fa._library(stem)     # load, bind, check the descriptor layout
 
     # ---- 2 kernels against their plain versions, on buckling-96's frame
     cfg = SolverConfig(octree_levels=4, tolerance=1e-4)
@@ -359,15 +418,8 @@ def main():
     u_log = {k: torch.randn(m.shape, generator=gen).to(dev) * m for k, m in sys_.active.items()}
     u = sys_.embed_tree(u_log)
     args = apply_k.level_args(u)
-    taus_k = fa.fused_tau(args, metas, enh)
-    taus_p = fa._plain_tau(args, metas, enh)
-    outs_k = fa.fused_dt(args, taus_p, metas, enh)
-    outs_p = fa._plain_dt(args, taus_p, metas, enh)
-    torch.cuda.synchronize()
-    tau_abs, tau_rel = max_rel_err(
-        (f"level {l} {n}", taus_k[l][n], taus_p[l][n]) for l in range(lv) for n in taus_p[l])
-    dt_abs, dt_rel = max_rel_err(
-        (f"level {l} {n}", outs_k[l][n], outs_p[l][n]) for l in range(lv) for n in outs_p[l])
+    (tau_abs, tau_rel), (dt_abs, dt_rel), taus_p = fused_pair_errors(args, metas, enh, "96")
+    err = {"fused_tau": (tau_abs, tau_rel), "fused_dt": (dt_abs, dt_rel)}
     got = apply_k(u)
     want = want_p = apply_p(u)
     v1 = sys_.apply_v1(u_log)
@@ -403,7 +455,7 @@ def main():
     log("kernels", f"library: CSR A @ x {lib_ms:.4f} ms per apply ({nnz} nonzeros, export "
                    f"{export_s:.2f} s on the host), vs the kernels' apply max abs {lib_abs:.3e} "
                    f"(rel {lib_rel:.2e}) | {smi}")
-    del taus_k, outs_k, outs_p, got, want, cropped, lib_y
+    del got, want, cropped, lib_y
 
     # ---- 2b every route on the same frame
     cx = [c.shape[0] for c in sys_.canons]
@@ -425,9 +477,9 @@ def main():
         for l, m in enumerate(modes):
             if m == "fused":
                 continue
-            (ta, tr), (da, dr) = level_pair_errors(args_r[l], metas[l], canons[l], enh)
-            route_err["tau_level"] = max(route_err["tau_level"], (ta, tr))
-            route_err["dt_level"] = max(route_err["dt_level"], (da, dr))
+            e_tau, e_dt = level_pair_errors(args_r[l], metas[l], canons[l], enh)
+            route_err["tau_level"] = worst(route_err["tau_level"], e_tau)
+            route_err["dt_level"] = worst(route_err["dt_level"], e_dt)
             t_ms, d_ms = time_level_pair(args_r[l], metas[l], canons[l], enh, 10)
             times.append(f"level {l} {m}: {len(canons[l].row_ranges())} ranges, tau_level "
                          f"{t_ms:.4f} ms, dt_level {d_ms:.4f} ms per apply")
@@ -443,6 +495,7 @@ def main():
     log("routes", f"level kernels vs plain over every route: tau_level max abs "
                   f"{route_err['tau_level'][0]:.3e} (rel {route_err['tau_level'][1]:.2e}), "
                   f"dt_level {route_err['dt_level'][0]:.3e} (rel {route_err['dt_level'][1]:.2e})")
+    err.update(route_err)
     del taus_p, v1, args, u, u_log, want_p, sys_, apply_k, apply_p
 
     # ---- 3 solve: the main path, through make_solver
@@ -587,9 +640,7 @@ def main():
     assert abs(st_2.iterations - EXPECT_192["iterations"]) <= 2, st_2.iterations
     assert st_2.residual <= 1e-4, st_2.residual
     assert launches2["tau_level"] > 0 and launches2["dt_level"] > 0, launches2
-    ranges2 = sum(len(c.row_ranges()) for c, m in zip(sys2.canons, modes2) if m != "fused")
-    for name in ("tau_level", "dt_level"):
-        assert launches2[name] == st_2.applies * ranges2, (name, launches2, st_2.applies)
+    check_launches(launches2, st_2.applies, sys2.canons, modes2, "192")
     for a, v in enumerate(res2.velocity):
         assert tuple(v.shape) == tuple(n2 + (1 if d == a else 0) for d in range(3)), v.shape
         assert bool(torch.isfinite(v).all()), f"192: velocity {a} not finite"
@@ -608,22 +659,25 @@ def main():
                + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in stages2.items())
                + f" | CG {st_2.iterations} iterations, {st_2.applies} applies | {smi}")
 
-    # the level kernels against their plain versions at the main path's shapes
+    # every kernel against its plain version at the main path's shapes: the
+    # routed levels' tau_level/dt_level, the fused group's fused_tau/fused_dt
     metas2 = sys2.apply_A.metas
     routed2 = [l for l, m in enumerate(modes2) if m != "fused"]
     gen = torch.Generator(device="cpu").manual_seed(2)
     u2_log = {k: torch.randn(m.shape, generator=gen).to(dev) * m for k, m in sys2.active.items()}
     u2 = sys2.embed_tree(u2_log)
     args2 = sys2.apply_A.level_args(u2)
-    lvl_err = {"tau_level": (0.0, 0.0), "dt_level": (0.0, 0.0)}
+    e2 = routed_errors(args2, metas2, sys2.canons, modes2, enh, "192")
+    err = {k: worst(err[k], e2[k]) for k in err}
     lvl_ms = {"tau_level": 0.0, "dt_level": 0.0}
     lvl_plain_ms = {"tau_level": 0.0, "dt_level": 0.0}
     for l in routed2:
-        e_tau, e_dt = level_pair_errors(args2[l], metas2[l], sys2.canons[l], enh)
-        lvl_err = {"tau_level": max(lvl_err["tau_level"], e_tau),
-                   "dt_level": max(lvl_err["dt_level"], e_dt)}
         t_ms, d_ms = time_level_pair(args2[l], metas2[l], sys2.canons[l], enh, 20)
-        tp_ms, dp_ms = time_level_pair(args2[l], metas2[l], sys2.canons[l], enh, 1, plain=True)
+        # the plain version once per apply: over the whole level (the split
+        # route's one range), not once per brick
+        tp_ms, dp_ms = time_level_pair(args2[l], metas2[l],
+                                       dataclasses.replace(sys2.canons[l], brick=None), enh, 1,
+                                       plain=True)
         lvl_ms["tau_level"] += t_ms
         lvl_ms["dt_level"] += d_ms
         lvl_plain_ms["tau_level"] += tp_ms
@@ -635,9 +689,9 @@ def main():
     nf2 = fa.kernel_flops([metas2[l] for l in routed2], enh)
     bounds["tau_level"] = bound(nb2["tau"], nf2["tau"])
     bounds["dt_level"] = bound(nb2["dt"], nf2["dt"])
-    log("192", f"level kernels on levels {routed2} vs plain: tau_level max abs "
-               f"{lvl_err['tau_level'][0]:.3e} (rel {lvl_err['tau_level'][1]:.2e}), dt_level "
-               f"{lvl_err['dt_level'][0]:.3e} (rel {lvl_err['dt_level'][1]:.2e}); per apply "
+    log("192", "kernels vs plain: "
+               + ", ".join(f"{k} max abs {v[0]:.3e} (rel {v[1]:.2e})" for k, v in e2.items())
+               + f"; per apply on levels {routed2}: "
                f"tau_level {lvl_ms['tau_level']:.4f} ms (plain {lvl_plain_ms['tau_level']:.2f} "
                f"ms, bound {bounds['tau_level'][0]:.4f} ms = {nb2['tau'] / 1e6:.1f} MB), "
                f"dt_level {lvl_ms['dt_level']:.4f} ms (plain {lvl_plain_ms['dt_level']:.2f} ms, "
@@ -676,10 +730,6 @@ def main():
     # ---- 6 buckling-256: default routes against every level fused
     n3 = 256
     st3 = scenes.buckling(n=n3, device=dev)
-    lv3, win3 = solver.probe_topology(st3, cfg, device=dev)
-    res3 = [tuple(s >> l for s in solver.padded_shape(tuple(st3.liquid_sdf.shape), 4))
-            for l in range(lv3)]
-    modes3 = fa.level_modes(fa.level_canons(res3, win3), fa.route_budget(dev))
     frames3 = {}
     route_budget = fa.route_budget
     for name in ("default", "fused"):
@@ -702,14 +752,20 @@ def main():
         finally:
             fa.route_budget = route_budget
     (rd, msd, lcd, memd), (rf, msf, lcf, memf) = frames3["default"], frames3["fused"]
+    # the default frame's system, as make_solver builds it
+    lv3, win3 = solver.probe_topology(st3, cfg, device=dev)
+    sys3 = solver.build_system(st3, dt, SolverConfig(octree_levels=lv3, tolerance=1e-4),
+                               device=dev, bboxes=win3, pad_levels=4)
+    modes3 = sys3.modes
     log("256", f"routes {modes3}, windows {win3}, weighted stress per level "
-               f"{[round(fa.tau_bytes(c) / 2**20, 1) for c in fa.level_canons(res3, win3)]} MiB | "
+               f"{[round(fa.tau_bytes(c) / 2**20, 1) for c in sys3.canons]} MiB | "
                f"default: {msd:.1f} ms frame, {rd.stats}, launches {lcd}, peak "
                f"{memd / 2**30:.2f} GiB | every level fused: {msf:.1f} ms, {rf.stats}, launches "
                f"{lcf}, peak {memf / 2**30:.2f} GiB | {smi}")
     assert "split" in modes3 and any(isinstance(m, tuple) for m in modes3), modes3
     assert lcd["tau_level"] > 0 and lcd["dt_level"] > 0, lcd
-    assert lcf["tau_level"] == 0 and lcf["fused_tau"] == rf.stats.applies, lcf
+    check_launches(lcd, rd.stats.applies, sys3.canons, modes3, "256 default")
+    check_launches(lcf, rf.stats.applies, sys3.canons, ["fused"] * lv3, "256 fused")
     assert rd.stats.solve_path == rf.stats.solve_path == "cuda"
     assert (rd.stats.octree_dofs, rd.stats.regular_dofs) == (rf.stats.octree_dofs,
                                                              rf.stats.regular_dofs)
@@ -719,15 +775,26 @@ def main():
     diff3 = max(float((a - b).abs().max()) for a, b in zip(rd.velocity, rf.velocity))
     assert bool(all(torch.isfinite(v).all() for v in rd.velocity))
     assert diff3 / scale3 < 5e-4, diff3 / scale3
+    sd, sf = rd.stats, rf.stats
+    del rd, rf, frames3, r3
+    # every kernel of the default routes against its plain version here
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    u3 = sys3.embed_tree({k: torch.randn(m.shape, generator=gen).to(dev) * m
+                          for k, m in sys3.active.items()})
+    e3 = routed_errors(sys3.apply_A.level_args(u3), sys3.apply_A.metas, sys3.canons, modes3,
+                       enh, "256")
+    err = {k: worst(err[k], e3[k]) for k in err}
     log("256", f"default routes vs every level fused: velocity max diff / scale "
-               f"{diff3 / scale3:.2e}, iterations {rd.stats.iterations} vs {rf.stats.iterations}")
+               f"{diff3 / scale3:.2e}, iterations {sd.iterations} vs {sf.iterations} | kernels vs plain: "
+               + ", ".join(f"{k} max abs {v[0]:.3e} (rel {v[1]:.2e})" for k, v in e3.items()))
+    del sys3, u3
 
     measured = {
-        "fused_tau": (launches["fused_tau"], tau_abs, tau_ms, tau_plain_ms, lib_ms),
-        "fused_dt": (launches["fused_dt"], dt_abs, dt_ms, dt_plain_ms, lib_ms),
-        "tau_level": (launches2["tau_level"], lvl_err["tau_level"][0], lvl_ms["tau_level"],
+        "fused_tau": (launches["fused_tau"], err["fused_tau"][0], tau_ms, tau_plain_ms, lib_ms),
+        "fused_dt": (launches["fused_dt"], err["fused_dt"][0], dt_ms, dt_plain_ms, lib_ms),
+        "tau_level": (launches2["tau_level"], err["tau_level"][0], lvl_ms["tau_level"],
                       lvl_plain_ms["tau_level"], lib2_ms),
-        "dt_level": (launches2["dt_level"], lvl_err["dt_level"][0], lvl_ms["dt_level"],
+        "dt_level": (launches2["dt_level"], err["dt_level"][0], lvl_ms["dt_level"],
                      lvl_plain_ms["dt_level"], lib2_ms),
     }
     kernels = []
@@ -753,7 +820,7 @@ def main():
                  "library_level_ms": lib2_ms, "export_s": export2_s,
                  "level0_ms": {"routed": l0_routed, "split": l0_split, "fused": l0_fused}},
         "b256": {"routes": [str(m) for m in modes3], "frame_ms": {"default": msd, "fused": msf},
-                 "cg_iterations": [rd.stats.iterations, rf.stats.iterations],
+                 "cg_iterations": [sd.iterations, sf.iterations],
                  "peak_gib": {"default": memd / 2**30, "fused": memf / 2**30}},
         "wall_s": time.perf_counter() - T0}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
