@@ -28,7 +28,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 
 # library stem -> (main source, headers it includes)
 SOURCES = {"fused_apply": ("fused_apply.cu", ("fused_apply.cuh",)),
-           "level_apply": ("level_apply.cu", ("fused_apply.cuh",))}
+           "level_apply": ("level_apply.cu", ("fused_apply.cuh",)),
+           "probe_kernels": ("probe_kernels.cu", ("probe_kernels.cuh",))}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, dict] = {}

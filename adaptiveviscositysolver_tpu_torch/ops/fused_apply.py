@@ -343,16 +343,21 @@ def level_canons(res_per_level, bboxes=None) -> List[Canon]:
 
 
 def build_frame_data(labels, vel_kinds, edge_kinds, center_kinds, blocks, mass: UField,
-                     res_per_level, bboxes=None, modes: Optional[Sequence[Mode]] = None):
+                     res_per_level, bboxes=None, modes: Optional[Sequence[Mode]] = None,
+                     canons: Optional[Sequence[Canon]] = None):
     """Embed the per-frame loop-invariant arrays into canonical boxes.
     Kind grids go in bit-packed (unused slots read OUTSIDE); ``bboxes``
     crops each box to the occupied window; ``modes`` sets the bricks of
-    the bricked levels (the arrays are the same on every route).  Returns
-    (data, canons)."""
+    the bricked levels (the arrays are the same on every route).
+    ``canons``: the boxes, already cropped and routed (a cached topology's;
+    ``bboxes`` and ``modes`` are then not read).  Returns (data, canons)."""
     levels = len(res_per_level)
-    canons = level_canons(res_per_level, bboxes)
-    if modes is not None:
-        canons = route_canons(canons, modes)
+    if canons is None:
+        canons = level_canons(res_per_level, bboxes)
+        if modes is not None:
+            canons = route_canons(canons, modes)
+    elif len(canons) != levels:
+        raise ValueError(f"{len(canons)} canons for {levels} levels")
     data: Dict[str, torch.Tensor] = {}
     for l in range(levels):
         c = canons[l]
@@ -615,22 +620,33 @@ def _check(levels, metas, names_fn) -> None:
                     f"{meta.shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _level_words(args, meta: LevelMeta, start: int = 0, rows: Optional[Tuple[int, int]] = None,
-                 tau_x0: int = 0, tau_nx: Optional[int] = None) -> np.ndarray:
-    """int64 words of csrc's AvsLevel: the threads of x rows ``rows`` (all
-    by default) from thread ``start`` on; wte/wtc hold rows from
-    ``tau_x0`` (``tau_nx`` of them, all by default)."""
+@functools.lru_cache(maxsize=1024)
+def _static_words(meta: LevelMeta, start: int, rows: Optional[Tuple[int, int]], tau_x0: int,
+                  tau_nx: Optional[int]) -> np.ndarray:
+    """The words of an AvsLevel that do not depend on the data (the pointer
+    slots zero): one array per topology and launch, built once."""
     words = np.zeros(_LEVEL_WORDS, np.int64)
-    for j, name in enumerate(_PTR_FIELDS):
-        t = args.get(name)
-        if t is not None:
-            words[j] = t.data_ptr()
     cx, cy, cz = meta.shape
     r0, r1 = (0, cx) if rows is None else rows
     words[35:42] = [cx, cy, cz, start, (r1 - r0) * cy * cz, int(meta.has_parent),
                     int(meta.has_child)]
     words[42] = np.array([1.0 / meta.dxw], np.float64).view(np.int64)[0]
     words[43:46] = [r0, tau_x0, cx if tau_nx is None else tau_nx]
+    words.flags.writeable = False
+    return words
+
+
+def _level_words(args, meta: LevelMeta, start: int = 0, rows: Optional[Tuple[int, int]] = None,
+                 tau_x0: int = 0, tau_nx: Optional[int] = None) -> np.ndarray:
+    """int64 words of csrc's AvsLevel: the threads of x rows ``rows`` (all
+    by default) from thread ``start`` on; wte/wtc hold rows from
+    ``tau_x0`` (``tau_nx`` of them, all by default)."""
+    words = _static_words(meta, start, None if rows is None else tuple(rows), tau_x0,
+                          tau_nx).copy()
+    for j, name in enumerate(_PTR_FIELDS):
+        t = args.get(name)
+        if t is not None:
+            words[j] = t.data_ptr()
     return words
 
 
@@ -764,18 +780,27 @@ def dt_outputs(meta: LevelMeta, dev) -> Dict[str, torch.Tensor]:
 
 
 def fused_dt(levels: Sequence[Dict[str, torch.Tensor]], taus: Sequence[Dict[str, torch.Tensor]],
-             metas: Sequence[LevelMeta], enhanced: bool) -> List[Dict[str, torch.Tensor]]:
+             metas: Sequence[LevelMeta], enhanced: bool,
+             out: Optional[List[Dict[str, torch.Tensor]]] = None) -> List[Dict[str, torch.Tensor]]:
     """``out0-2`` (masked, mass added), ``zp0-2`` (levels with a parent) and
-    ``zc0-2`` (levels with a child) of every level.
+    ``zc0-2`` (levels with a child) of every level, into ``out`` (per
+    level, :func:`dt_outputs`' tensors) if given; every element is written.
 
     CUDA tensors: one launch of the D^T kernel over all levels.  CPU
     tensors: :func:`dt_plain` per level."""
     dev = _device_of(levels)
     if dev.type == "cpu":
-        return _plain_dt(levels, taus, metas, enhanced)
+        res = _plain_dt(levels, taus, metas, enhanced)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            for n in r:
+                o[n].copy_(r[n])
+        return out
     merged = [{**a, **t} for a, t in zip(levels, taus)]
     _check(merged, metas, _dt_names)
-    res = [dt_outputs(meta, dev) for meta in metas]
+    res = [dt_outputs(meta, dev) for meta in metas] if out is None else out
+    _check(res, metas, _dt_output_names)
     _launch("avs_dt_launch", [{**m, **r} for m, r in zip(merged, res)], metas, enhanced)
     launch_counts["fused_dt"] += 1
     return res
@@ -938,17 +963,46 @@ def _plain_dt(levels, taus, metas, enhanced):
     return res
 
 
+def operator_buffers(canons: Sequence[Canon], modes: Sequence[Mode], device
+                     ) -> Dict[str, object]:
+    """The buffers :func:`make_fused_operator` writes on every apply, which
+    depend only on the routed boxes: ``fused_tau``, the fused group's
+    weighted stresses (per fused level, six box-shaped planes);
+    ``scratch``, one flat weighted-stress scratch that the split and
+    bricked levels share (the largest x-row range's, halo included); and
+    ``outs``, each level's D^T outputs (:func:`dt_outputs`).  Every apply
+    writes each element it reads before reading it, so the buffers carry
+    nothing from one apply, or one frame, to the next: ``make_solver``
+    keeps them per topology."""
+    if len(modes) != len(canons):
+        raise ValueError(f"{len(modes)} modes for {len(canons)} levels")
+    dev = torch.device(device)
+    metas = level_metas(canons, 1.0)
+    fused = [l for l, m in enumerate(modes) if m == "fused"]
+    routed = [l for l, m in enumerate(modes) if m != "fused"]
+    scratch_len = max([int(np.prod(canons[l].shape[1:])) * (t1 - t0) for l in routed
+                       for t0, t1 in (tau_rows(r, canons[l].shape[0])
+                                      for r in canons[l].row_ranges())], default=0)
+    return {"fused_tau": _tau_buffers([metas[l] for l in fused], dev),
+            "scratch": torch.empty(len(TAU_NAMES) * scratch_len, dtype=F32, device=dev),
+            "outs": [dt_outputs(m, dev) for m in metas]}
+
+
 def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
                         active: UField, res_per_level, dx: float, enhanced: bool,
-                        plain: bool = False, modes: Optional[Sequence[Mode]] = None):
+                        plain: bool = False, modes: Optional[Sequence[Mode]] = None,
+                        buffers: Optional[Dict[str, object]] = None):
     """Return (apply_A, embed_tree, crop_tree) in canonical space (the port
     of make_pallas_operator): per apply, the glue builds the cross-level
     views; the "fused" levels run ``fused_tau`` and ``fused_dt`` once each
     for the whole group; each "split" or bricked level runs
     ``tau_level``/``dt_level`` once per x-row range of its canon
-    (:meth:`Canon.row_ranges`) over one weighted-stress scratch, allocated
-    here once and shared by those levels; then the zp/zc adjoints are added
-    masked to the receiving level.
+    (:meth:`Canon.row_ranges`) over one weighted-stress scratch shared by
+    those levels; then the zp/zc adjoints are added masked to the receiving
+    level.  The weighted stresses and the D^T outputs go into ``buffers``
+    (:func:`operator_buffers` of these canons and modes; allocated here if
+    not given), so a returned grid of a one-level operator is a buffer that
+    the next apply overwrites.
 
     ``modes``: the route of each level (default all "fused"); a bricked
     level's canon carries its brick (:func:`route_canons`).
@@ -967,11 +1021,9 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
                if not n.startswith(("u", "up", "cs"))} for l in range(levels)]
     fused = [l for l in range(levels) if modes[l] == "fused"]
     routed = [l for l in range(levels) if modes[l] != "fused"]
-    fused_scratch = _tau_buffers([metas[l] for l in fused], dev)
-    scratch_len = max([int(np.prod(canons[l].shape[1:])) * (t1 - t0) for l in routed
-                       for t0, t1 in (tau_rows(r, canons[l].shape[0])
-                                      for r in canons[l].row_ranges())], default=0)
-    scratch = torch.empty(len(TAU_NAMES) * scratch_len, dtype=F32, device=dev)
+    if buffers is None:
+        buffers = operator_buffers(canons, modes, dev)
+    fused_scratch, scratch, outs_buf = buffers["fused_tau"], buffers["scratch"], buffers["outs"]
 
     def tau_view(l: int, rows: int) -> Dict[str, torch.Tensor]:
         n = rows * int(np.prod(canons[l].shape[1:]))
@@ -1002,7 +1054,7 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
         """One split or bricked level: the pair once per x-row range."""
         meta = metas[l]
         tau_fn, dt_fn = (plain_tau_level, plain_dt_level) if plain else (tau_level, dt_level)
-        out = dt_outputs(meta, dev)
+        out = outs_buf[l]
         for rows in canons[l].row_ranges():
             t0, t1 = tau_rows(rows, meta.shape[0])
             tau = tau_fn(args, meta, enhanced, (t0, t1), tau_view(l, t1 - t0))
@@ -1018,7 +1070,7 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
                 fres = _plain_dt(fa_, _plain_tau(fa_, fm, enhanced), fm, enhanced)
             else:
                 fres = fused_dt(fa_, fused_tau(fa_, fm, enhanced, out=fused_scratch), fm,
-                                enhanced)
+                                enhanced, out=[outs_buf[l] for l in fused])
             for l, r in zip(fused, fres):
                 res[l] = r
         for l in routed:

@@ -13,6 +13,7 @@ on device tensors, and the CG loop is a Python loop.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import time
@@ -61,6 +62,11 @@ class SolveStats:
     # version, on CPU tensors) or "v1" (the whole-array operator)
     solve_path: str = ""
     applies: int = 0          # operator applies made by the CG
+    # [iterations, residual, octree_dofs, regular_dofs, counts..., boxes...]
+    # of THIS frame's full-height octree occupancy (the JAX layout), fetched
+    # with the stats when solve_viscosity gets ``probe_levels``, so that
+    # make_solver's async probe costs no transfer of its own; else None
+    topology_probe: Optional[List[float]] = None
 
 
 @dataclasses.dataclass
@@ -175,17 +181,48 @@ class System:
     frame: Optional[Dict[str, torch.Tensor]] = None
     canons: Optional[list] = None
     modes: Optional[list] = None       # per-level route of the fused apply
+    mask: Optional[torch.Tensor] = None   # the refinement mask the octree was built from
+
+
+@dataclasses.dataclass
+class Topology:
+    """The part of a fused-apply system that depends only on the topology
+    key (level resolutions and crop windows), not on the frame's data: the
+    routed canonical boxes, their routes (from the card's L2 budget) and
+    the operator's buffers (``fused_apply.operator_buffers``).  Empty until
+    the first :func:`build_system` that is handed it fills it; later ones
+    reuse it.  ``make_solver`` keeps one per cache entry."""
+
+    res_per_level: Optional[List[Tuple[int, int, int]]] = None
+    windows: Optional[tuple] = None
+    canons: Optional[list] = None
+    modes: Optional[list] = None
+    buffers: Optional[dict] = None
+
+    def fill(self, res_per_level, windows, device) -> None:
+        if self.canons is None:
+            canons = fused_apply.level_canons(res_per_level, windows)
+            self.modes = fused_apply.level_modes(canons, fused_apply.route_budget(device))
+            self.canons = fused_apply.route_canons(canons, self.modes)
+            self.buffers = fused_apply.operator_buffers(self.canons, self.modes, device)
+            self.res_per_level, self.windows = list(res_per_level), windows
+        elif (self.res_per_level, self.windows) != (list(res_per_level), windows):
+            raise ValueError(f"this topology was built for levels {self.res_per_level} and "
+                             f"windows {self.windows}, not {res_per_level} and {windows}")
 
 
 def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *,
                  device="cuda", bboxes=None, pad_levels=None,
-                 stage_times: Optional[Dict[str, float]] = None) -> System:
+                 stage_times: Optional[Dict[str, float]] = None,
+                 topology: Optional[Topology] = None) -> System:
     """Every stage of :func:`solve_viscosity` up to the CG: surface weights,
     octree, labels, stencils, restriction, and the system (operator, rhs,
     Jacobi diagonal).  ``bboxes`` are per-level crop windows for the fused
     apply (from :func:`probe_topology`).  The fused apply routes each level
     by the card's L2 budget (``fused_apply.level_modes`` with
-    ``fused_apply.route_budget(device)``)."""
+    ``fused_apply.route_budget(device)``).  ``topology``: a
+    :class:`Topology` to take the boxes, routes and buffers from (filled
+    here if empty); it must have been built for these levels and windows."""
     device = torch.device(device)
     _validate_state(state)
     state = state.to(device=device, dtype=config.dtype)
@@ -261,23 +298,24 @@ def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *
                              "use apply_impl='v1'")
         sys_ = System(state, orig_res, levels, impl, labels, vel_kinds, regular_kinds,
                       res_per_level, active, v1_apply, v1_apply, rhs, guess, diag,
-                      blocks=blocks, mass=mass)
+                      blocks=blocks, mass=mass, mask=mask)
         if impl == "cuda":
-            modes = fused_apply.level_modes(fused_apply.level_canons(res_per_level, bboxes),
-                                            fused_apply.route_budget(device))
+            topo = Topology() if topology is None else topology
+            topo.fill(res_per_level, bboxes, device)
             frame, canons = fused_apply.build_frame_data(
                 labels, vel_kinds, edge_kinds, center_kinds, blocks, mass, res_per_level,
-                bboxes=bboxes, modes=modes)
+                canons=topo.canons)
             sys_.apply_A, sys_.embed_tree, sys_.crop_tree = fused_apply.make_fused_operator(
                 frame, canons, active, res_per_level, dx, config.use_enhanced_gradients,
-                modes=modes)
-            sys_.frame, sys_.canons, sys_.modes = frame, canons, modes
+                modes=topo.modes, buffers=topo.buffers)
+            sys_.frame, sys_.canons, sys_.modes = frame, canons, topo.modes
     return sys_
 
 
 def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig(), *,
-                    device="cuda", bboxes=None, pad_levels=None,
-                    stage_times: Optional[Dict[str, float]] = None) -> SolveResult:
+                    device="cuda", bboxes=None, pad_levels=None, probe_levels=None,
+                    stage_times: Optional[Dict[str, float]] = None,
+                    topology: Optional[Topology] = None) -> SolveResult:
     """One viscosity solve (the reference's per-frame solveGasSubclass).
 
     ``device`` defaults to the card; the state is moved there.  The face
@@ -285,12 +323,15 @@ def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig()
     take them from the host FLIP loop; not ported yet).  ``bboxes``:
     per-level crop windows for the fused apply (``make_solver`` supplies
     them).  ``pad_levels``: pad the domain for this many levels even if
-    fewer are solved.  ``stage_times``: a dict that receives per-stage
-    seconds (synchronizes at each stage)."""
+    fewer are solved.  ``probe_levels``: also return this frame's
+    occupancy of a ``probe_levels``-level octree in
+    ``stats.topology_probe`` (decode with :func:`decode_topology_probe`).
+    ``stage_times``: a dict that receives per-stage seconds (synchronizes
+    at each stage).  ``topology``: see :func:`build_system`."""
     device = torch.device(device)
     clock = _StageClock(stage_times, device)
     sys_ = build_system(state, dt, config, device=device, bboxes=bboxes,
-                        pad_levels=pad_levels, stage_times=stage_times)
+                        pad_levels=pad_levels, stage_times=stage_times, topology=topology)
     state, levels = sys_.state, sys_.levels
 
     with clock("solve"):
@@ -321,24 +362,46 @@ def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig()
         path = "cuda" if device.type == "cuda" else "cuda-plain"
     else:
         path = sys_.impl
-    counts = torch.stack([sum(m.sum() for m in sys_.active.values()),
-                          sum((k == classify.FLUID).sum() for k in sys_.regular_kinds)])
-    counts = counts.tolist()
+    # everything the host reads back comes in one transfer (float64 holds
+    # the counts exactly)
+    parts = [torch.as_tensor(rel, device=device).reshape(1),
+             sum(m.sum() for m in sys_.active.values()).reshape(1),
+             sum((k == classify.FLUID).sum() for k in sys_.regular_kinds).reshape(1),
+             octree.active_cell_counts(sys_.labels)]
+    if probe_levels is not None:
+        with clock("topology_probe"):
+            full = capped_levels(tuple(state.liquid_sdf.shape), probe_levels)
+            plabels = sys_.labels if full == levels else octree.build_octree(sys_.mask, full)
+            parts += [octree.active_cell_counts(plabels),
+                      torch.stack(octree.occupied_bboxes(plabels)).reshape(-1)]
+    packed = torch.cat([p.to(torch.float64) for p in parts]).tolist()
     stats = SolveStats(
         iterations=int(iters),
-        residual=float(rel),
-        octree_dofs=int(counts[0]),
-        regular_dofs=int(counts[1]),
-        active_cells=[int(c) for c in octree.active_cell_counts(sys_.labels).tolist()],
+        residual=packed[0],
+        octree_dofs=int(packed[1]),
+        regular_dofs=int(packed[2]),
+        active_cells=[int(c) for c in packed[3:3 + levels]],
         solve_path=path,
         applies=int(applies),
     )
+    if probe_levels is not None:
+        stats.topology_probe = [float(iters)] + packed[:3] + packed[3 + levels:]
     return SolveResult(velocity=tuple(new_velocity), stats=stats)
 
 
 # ---------------------------------------------------------------------------
 # host-side topology probe and the per-frame solver closure
 # ---------------------------------------------------------------------------
+
+
+WINDOW_QUANTUM = 16  # hysteresis GROWTH step, not the snap grid (the JAX
+# package measured tight windows against 16-snapped ones on the beam scene:
+# snapping sweeps ~1.7x more canonical plane area).  Tight windows keep the
+# apply minimal; the coarse growth step and the LRU cap of make_solver bound
+# the number of cached topologies.
+SHRINK_AFTER = 8    # consecutive oversized frames before a re-tighten
+SHRINK_RATIO = 1.5  # cached/tight swept-volume ratio that counts as oversized
+MAX_PROGRAMS = 8    # make_solver's LRU cap on cached topologies
 
 
 def _tight_windows(raw, res_per_level, margin=2, q=2):
@@ -357,6 +420,54 @@ def _tight_windows(raw, res_per_level, margin=2, q=2):
             rows.append((lo, hi))
         out.append(tuple(rows))
     return tuple(out)
+
+
+def _merge_windows(cached, tight, res_per_level, q=WINDOW_QUANTUM):
+    """Hysteresis of the per-solver window cache: keep the cached window
+    while the fluid stays inside it; on a violation, extend the violated
+    side onto the ``q`` grid one quantum past the tight bound (so a moving
+    fluid changes topology in coarse steps, and grown bounds land on shared
+    grid positions).  Windows shrink only through make_solver's age-out."""
+    if cached is None:
+        return tight
+    out = []
+    for cw, tw, res in zip(cached, tight, res_per_level):
+        rows = []
+        for d in range(3):
+            lo, hi = cw[d]
+            if tw[d][0] < lo:
+                lo = max(0, (tw[d][0] - q) // q * q)
+            if tw[d][1] > hi:
+                hi = min(res[d], -(-(tw[d][1] + q) // q) * q)
+            rows.append((lo, hi))
+        out.append(tuple(rows))
+    return tuple(out)
+
+
+def _shrink_target(tight, res_per_level, q=WINDOW_QUANTUM):
+    """Re-tighten target: the tight window expanded one quantum per side
+    onto the shared ``q`` grid (the positions _merge_windows grows to)."""
+    out = []
+    for tw, res in zip(tight, res_per_level):
+        rows = []
+        for d in range(3):
+            lo = max(0, (tw[d][0] - q) // q * q)
+            hi = min(res[d], -(-(tw[d][1] + q) // q) * q)
+            rows.append((lo, hi))
+        out.append(tuple(rows))
+    return tuple(out)
+
+
+def _windows_volume(windows) -> int:
+    """Total swept cell volume of a window set (the apply's cost scales with
+    the canonical boxes' volumes)."""
+    total = 0
+    for w in windows:
+        v = 1
+        for d in range(3):
+            v *= max(0, w[d][1] - w[d][0])
+        total += v
+    return total
 
 
 def _trim_and_window(counts, raw_bboxes, shape, q=2):
@@ -399,21 +510,137 @@ def probe_topology(state: FluidState, config: SolverConfig, *, device="cuda"):
     return _trim_and_window(counts, raw, shape)
 
 
-def make_solver(config: SolverConfig = SolverConfig(), *, device="cuda"):
-    """Solve closure ``solve(state, dt, stage_times=None) -> SolveResult``.
+def effective_levels(state: FluidState, config: SolverConfig, *, device="cuda") -> int:
+    """Octree level count with trailing empty levels dropped (the
+    reference's empty-top-level trim, HDK_OctreeGrid.cpp:198-211): a level
+    with no ACTIVE cell adds no DOF, stencil or coupling."""
+    return probe_topology(state, config, device=device)[0]
 
-    Each call probes the octree occupancy, trims empty top levels and crops
-    the fused apply to this frame's occupied windows (the JAX make_solver's
-    first-frame behaviour; window hysteresis, the async probe and the
-    program cache are not ported yet)."""
 
-    def solve(state: FluidState, dt, stage_times: Optional[Dict[str, float]] = None):
-        clock = _StageClock(stage_times, torch.device(device))
-        with clock("probe"):
-            lv, windows = probe_topology(state, config, device=device)
+def decode_topology_probe(packed, shape, full_levels):
+    """Host decode of ``SolveStats.topology_probe``: (stats dict, effective
+    levels, crop windows).  ``packed`` is [iterations, residual,
+    octree_dofs, regular_dofs, counts..., boxes...] of the full (untrimmed)
+    ``full_levels``-level pyramid."""
+    packed = [float(v) for v in packed]
+    counts = [int(v) for v in packed[4:4 + full_levels]]
+    raw = [[[int(packed[4 + full_levels + 6 * l + 2 * d + k]) for k in (0, 1)]
+            for d in range(3)] for l in range(full_levels)]
+    lv, windows = _trim_and_window(counts, raw, shape)
+    stats = {"iterations": int(packed[0]), "residual": packed[1],
+             "octree_dofs": int(packed[2]), "regular_dofs": int(packed[3])}
+    return stats, lv, windows
+
+
+def _contained(tight, used) -> bool:
+    return all(u[d][0] <= t[d][0] and t[d][1] <= u[d][1]
+               for t, u in zip(tight, used) for d in range(3))
+
+
+def make_solver(config: SolverConfig = SolverConfig(), *, auto_trim_levels: bool = True,
+                async_probe: bool = True, device="cuda"):
+    """Solve closure ``solve(state, dt, stage_times=None) -> SolveResult``
+    with the JAX make_solver's host policy.
+
+    ``auto_trim_levels`` (default on): trim empty top levels and crop the
+    fused apply to per-level windows of the occupied region.  Windows carry
+    hysteresis per level count (:func:`_merge_windows`: grow on a
+    violation, by a quantum) and shrink by age-out: after ``SHRINK_AFTER``
+    consecutive frames whose cached windows sweep over ``SHRINK_RATIO``
+    times the tight windows' volume, re-tighten, to :func:`_shrink_target`
+    where that is a shrink by the same ratio, else to the tight windows.
+    (The JAX make_solver tests the ratio against the shrink target, which
+    on a small domain is the whole domain, so its shrink never fires:
+    ROADMAP C1.)
+
+    Each topology key (level count, windows, ``async_probe``, and the
+    padded grid, which the JAX jit keys by itself) has a cache entry, a
+    :class:`Topology` that keeps the routed boxes and the operator's
+    buffers on the card; at most ``MAX_PROGRAMS``, least recently used
+    dropped.  A frame of another grid (shape or dx) starts the window
+    history anew.
+
+    ``async_probe`` (default on): only the first frame of a grid probes;
+    each solve returns its frame's full-height occupancy with the stats
+    (``stats.topology_probe``, in the same transfer), and the next frame
+    dispatches with those windows.  When the solved frame's occupancy
+    escapes the windows it used, or its level trim changed, the frame is
+    solved again with its own.  ``solve.cache_info()`` gives ``{"programs":
+    entries, "windows": {levels: windows}}``."""
+    device = torch.device(device)
+    entries: "collections.OrderedDict[tuple, Topology]" = collections.OrderedDict()
+    window_cache: Dict[int, tuple] = {}
+    slack_age: Dict[int, int] = {}
+    carry: Dict[str, object] = {}
+
+    def _entry(key) -> Topology:
+        if key not in entries:
+            entries[key] = Topology()
+        entries.move_to_end(key)
+        while len(entries) > MAX_PROGRAMS:
+            entries.popitem(last=False)
+        return entries[key]
+
+    def _windows(lv, tight, res_per_level):
+        cached = window_cache.get(lv)
+        windows = _merge_windows(cached, tight, res_per_level)
+        if cached is not None and windows == cached:
+            if _windows_volume(cached) > SHRINK_RATIO * max(1, _windows_volume(tight)):
+                slack_age[lv] = slack_age.get(lv, 0) + 1
+                if slack_age[lv] >= SHRINK_AFTER:
+                    target = _shrink_target(tight, res_per_level)
+                    shrinks = SHRINK_RATIO * _windows_volume(target) <= _windows_volume(cached)
+                    windows = target if shrinks else tight
+                    slack_age[lv] = 0
+            else:
+                slack_age[lv] = 0
+        else:
+            slack_age[lv] = 0
+        window_cache[lv] = windows
+        return windows
+
+    def _dispatch(lv, tight, state, dt, pshape, stage_times):
         cfg = config if lv == config.octree_levels else dataclasses.replace(
             config, octree_levels=lv)
-        return solve_viscosity(state, dt, cfg, device=device, bboxes=windows,
-                               pad_levels=config.octree_levels, stage_times=stage_times)
+        windows = _windows(lv, tight, [tuple(s >> l for s in pshape) for l in range(lv)])
+        out = solve_viscosity(
+            state, dt, cfg, device=device, bboxes=windows, pad_levels=config.octree_levels,
+            probe_levels=config.octree_levels if async_probe else None,
+            stage_times=stage_times, topology=_entry((lv, windows, async_probe, pshape)))
+        return out, windows
 
+    def solve(state: FluidState, dt, stage_times: Optional[Dict[str, float]] = None):
+        shape = tuple(state.liquid_sdf.shape)
+        full = capped_levels(shape, config.octree_levels)
+        pshape = padded_shape(shape, full)
+        if not auto_trim_levels:
+            return solve_viscosity(state, dt, config, device=device, stage_times=stage_times,
+                                   topology=_entry((config.octree_levels, None, False, pshape)))
+        if carry.get("grid") != (pshape, state.dx):
+            window_cache.clear()
+            slack_age.clear()
+            carry.clear()
+            carry["grid"] = (pshape, state.dx)
+        if async_probe and "probe" in carry:
+            lv, tight = carry["probe"]
+        else:
+            with _StageClock(stage_times, device)("probe"):
+                lv, tight = probe_topology(state, config, device=device)
+        out, used = _dispatch(lv, tight, state, dt, pshape, stage_times)
+        if not async_probe:
+            return out
+        _, lv2, tight2 = decode_topology_probe(out.stats.topology_probe, shape, full)
+        carry["probe"] = (lv2, tight2)
+        if lv2 != lv or not _contained(tight2, used[:lv2]):
+            # the solved frame's occupancy escaped the windows it used (or
+            # its trim changed): solve it again with its own probe, which
+            # cannot escape
+            out, _ = _dispatch(lv2, tight2, state, dt, pshape, stage_times)
+        return out
+
+    def cache_info():
+        """Cached topologies and the current grid's windows per level count."""
+        return {"programs": len(entries), "windows": dict(window_cache)}
+
+    solve.cache_info = cache_info
     return solve

@@ -43,10 +43,33 @@ Phases (one line each, elapsed seconds first):
                 default routes against every level fused
   6 256      -- scenes.buckling(256): one frame on the default routes (brick
                 and split) against one with every level fused (an unbounded
-                budget): launch counts against each frame's routes, same
+                budget), each through a make_solver of its own: launch counts
+                against each frame's routes, same
                 DOFs, iterations +- 2, velocity within rel 5e-4; every kernel
                 of the default routes (level 0's bricks, level 1 split, the
                 fused group) against its plain version; peak device memory
+  7 beam     -- scenes.beam(64) through make_solver, the scene that fills ~7 %
+                of its domain: the JAX package's counts (BENCH_r04.json: 262
+                +- 2 iterations, 22064 / 32336 DOFs, 3 levels), residual <=
+                1e-4, the kernels' path; its routes and windows
+  8 policy   -- make_solver's host policy on test_recompile's ball at 96^3 (5
+                iterations a frame): 7 translated frames through an async and
+                a sync solver (at most 3 cached topologies each, the same
+                iterations, velocity within 1e-6 of max), then a drain from r
+                0.30 to 0.15 (the window re-tightens within SHRINK_AFTER + 2
+                frames to under 0.7 of its peak volume)
+  9 probes   -- the probe tools' path (tools.calibrate_bandwidth and
+                tools.profile_levels at buckling-96, launch counts read around
+                it); banded_apply (T1) on the 104 x 112 x 128 box with 15
+                planes and stream_floor (T2) on buckling-96's level-0 box
+                against their plain versions (3e-5 * max; the floor also with
+                its int8 bytes counted); each kernel's time with the L2 flushed,
+                bytes, bound, share of bound, and copy_ of the same bytes
+
+Phase 3 also runs the make_solver cache: a fresh solver's 3 frames of
+buckling-96 (only the first probes; one cached topology; the cold and cached
+build_system times) and the cuda frame against the float64 whole-array
+solve of the same frame (velocity within rel 5e-4, iterations +- 2).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``.  Every failed check raises; the whole
@@ -72,15 +95,20 @@ N = 96
 EXPECT = dict(levels=3, octree_dofs=186836, regular_dofs=284564, iterations=203)
 # the JAX package's record of buckling-192 (BENCH_r05.json, scale_point)
 EXPECT_192 = dict(levels=4, octree_dofs=820288, regular_dofs=2209612, iterations=337)
+# the JAX package's record of beam-64 (BENCH_r04.json)
+EXPECT_BEAM = dict(levels=3, octree_dofs=22064, regular_dofs=32336, iterations=262)
 _PA = "adaptiveviscositysolver_tpu/ops/pallas_apply.py"
 _FUSED = f"{_PA}:1359 (_make_fused_kernel, level 0) + :1447 (_make_merged_kernel, levels >= 1)"
 REPLACES = {
     "fused_tau": _FUSED, "fused_dt": _FUSED,
     "tau_level": f"{_PA}:846 (_make_tau_kernel) + :751-843 (_level_kernel, bricked branch)",
     "dt_level": f"{_PA}:913 (_make_dt_kernel) + :751-843 (_level_kernel, bricked branch)",
+    "banded_apply": "tools/calibrate_bandwidth.py:30 (banded_kernel; pallas_call at :63)",
+    "stream_floor": "tools/profile_levels.py:128 (dma_kernel; pallas_call at :163)",
 }
 SOURCE = {"fused_tau": "fused_apply.cu", "fused_dt": "fused_apply.cu",
-          "tau_level": "level_apply.cu", "dt_level": "level_apply.cu"}
+          "tau_level": "level_apply.cu", "dt_level": "level_apply.cu",
+          "banded_apply": "probe_kernels.cu", "stream_floor": "probe_kernels.cu"}
 
 T0 = time.perf_counter()
 
@@ -373,8 +401,9 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from adaptiveviscositysolver_tpu_torch import scenes, solver
     from adaptiveviscositysolver_tpu_torch.config import SolverConfig
-    from adaptiveviscositysolver_tpu_torch.ops import _build
+    from adaptiveviscositysolver_tpu_torch.ops import _build, probes
     from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
+    from adaptiveviscositysolver_tpu_torch.tools import calibrate_bandwidth, call_ms, profile_levels
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -396,8 +425,9 @@ def main():
                      + " | ".join(regs))
     log("build", f"total {build_s:.2f} s into {_build.BUILD_DIR}")
     assert build_s <= BUILD_BUDGET_S, f"build took {build_s:.1f} s > {BUILD_BUDGET_S} s"
-    for stem in _build.SOURCES:
+    for stem in ("fused_apply", "level_apply"):
         fa._library(stem)     # load, bind, check the descriptor layout
+    probes._library()
 
     # ---- 2 kernels against their plain versions, on buckling-96's frame
     cfg = SolverConfig(octree_levels=4, tolerance=1e-4)
@@ -535,6 +565,9 @@ def main():
         assert r.stats.iterations == st.iterations
     stages = {}
     solve(state, dt, stage_times=stages)
+    # warm frames take the cached topology and the last frame's probe
+    assert "probe" not in stages and solve.cache_info()["programs"] == 1, (
+        sorted(stages), solve.cache_info())
     log("solve", f"warm frames {['%.2f' % w for w in warm]} ms, median "
                  f"{statistics.median(warm):.2f} ms | stages (synchronized) "
                  + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in stages.items())
@@ -608,6 +641,42 @@ def main():
     assert abs(got_s.stats.iterations - want_s.stats.iterations) <= 2
     assert diff / scale < 5e-4
 
+    # the make_solver cache: a fresh solver's 3 frames of buckling-96
+    solve_c = solver.make_solver(cfg, device=dev)
+    cache_stages = []
+    for i in range(3):
+        stc = {}
+        rc = solve_c(state, dt, stage_times=stc)
+        cache_stages.append(stc)
+        assert ("probe" in stc) == (i == 0), (i, sorted(stc))
+        assert solve_c.cache_info()["programs"] == 1, solve_c.cache_info()
+        assert rc.stats.solve_path == "cuda", rc.stats.solve_path
+        assert (rc.stats.octree_dofs, rc.stats.regular_dofs) == (EXPECT["octree_dofs"],
+                                                                 EXPECT["regular_dofs"])
+        assert abs(rc.stats.iterations - EXPECT["iterations"]) <= 2, rc.stats.iterations
+    build_ms = [c["build_system"] * 1e3 for c in cache_stages]
+    log("cache", f"3 frames through one make_solver: probe {cache_stages[0]['probe'] * 1e3:.2f} "
+                 f"ms on the first only; {solve_c.cache_info()}; build_system "
+                 f"{build_ms[0]:.2f} ms cold, {build_ms[1]:.2f} and {build_ms[2]:.2f} ms "
+                 f"cached; topology_probe in the solve "
+                 f"{[round(c['topology_probe'] * 1e3, 2) for c in cache_stages]} ms | {smi}")
+    del solve_c, rc
+
+    # the cuda frame of phase 3 against the float64 whole-array solve
+    t = time.perf_counter()
+    want96 = solver.solve_viscosity(state, dt, dataclasses.replace(cfg, dtype=torch.float64),
+                                    device=dev)
+    v1_96_s = time.perf_counter() - t
+    scale96 = max(float(v.abs().max()) for v in want96.velocity)
+    diff96 = max(float((g.double() - w).abs().max()) for g, w in zip(res.velocity,
+                                                                     want96.velocity))
+    log("solve", f"buckling-96: cuda {st.iterations} it vs float64 v1 {want96.stats.iterations} "
+                 f"it ({v1_96_s:.2f} s), max velocity diff / scale {diff96 / scale96:.2e}")
+    assert st.solve_path == "cuda" and want96.stats.solve_path == "v1"
+    assert abs(st.iterations - want96.stats.iterations) <= 2
+    assert diff96 / scale96 < 5e-4
+    del want96
+
     # ---- 5 buckling-192: the large-grid path through make_solver
     n2 = 192
     st2 = scenes.buckling(n=n2, device=dev)
@@ -655,8 +724,13 @@ def main():
         assert r.stats.iterations == st_2.iterations
     stages2 = {}
     solve(st2, dt, stage_times=stages2)
+    # a new grid starts its own window history: the cold frame probed, the
+    # warm ones take its cached topology (the solver holds 96's and 192's)
+    assert "probe" not in stages2 and solve.cache_info()["programs"] == 2, (
+        sorted(stages2), solve.cache_info())
     log("192", f"warm frames {['%.2f' % w for w in warm2]} ms | stages (synchronized) "
                + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in stages2.items())
+               + f" | cached build_system {stages2['build_system'] * 1e3:.2f} ms"
                + f" | CG {st_2.iterations} iterations, {st_2.applies} applies | {smi}")
 
     # every kernel against its plain version at the main path's shapes: the
@@ -742,7 +816,9 @@ def main():
             stages3 = {}
             start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            r3 = solve(st3, dt, stage_times=stages3)
+            # a solver of its own: the patched budget routes another topology
+            # under the same key, which a shared cache would hand back
+            r3 = solver.make_solver(cfg, device=dev)(st3, dt, stage_times=stages3)
             stop.record()
             torch.cuda.synchronize()
             frames3[name] = (r3, start.elapsed_time(stop), dict(fa.launch_counts),
@@ -789,6 +865,157 @@ def main():
                + ", ".join(f"{k} max abs {v[0]:.3e} (rel {v[1]:.2e})" for k, v in e3.items()))
     del sys3, u3
 
+    # ---- 7 beam-64 through make_solver: the crop windows' scene
+    beam = scenes.beam(n=64, device=dev)
+    solve_b = solver.make_solver(cfg, device=dev)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t = time.perf_counter()
+    rb = solve_b(beam, dt)
+    for v in rb.velocity:
+        v.sum().item()
+    beam_cold_s = time.perf_counter() - t
+    launches_b = dict(fa.launch_counts)
+    ((lv_b, win_b),) = solve_b.cache_info()["windows"].items()
+    canons_b = fa.level_canons([tuple(64 >> l for _ in range(3)) for l in range(lv_b)], win_b)
+    modes_b = fa.level_modes(canons_b, fa.route_budget(dev))
+    sb = rb.stats
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    rb2 = solve_b(beam, dt)
+    stop.record()
+    torch.cuda.synchronize()
+    beam_warm_ms = start.elapsed_time(stop)
+    log("beam", f"beam-64 cold frame {beam_cold_s:.3f} s, cached frame {beam_warm_ms:.2f} ms: "
+                f"{sb} | launches {launches_b} | routes {modes_b}, windows {win_b}, canonical "
+                f"boxes {[c.shape for c in canons_b]} | {smi}")
+    assert sb.solve_path == "cuda", sb.solve_path
+    assert len(sb.active_cells) == lv_b == EXPECT_BEAM["levels"], (sb.active_cells, lv_b)
+    assert sb.octree_dofs == EXPECT_BEAM["octree_dofs"], sb.octree_dofs
+    assert sb.regular_dofs == EXPECT_BEAM["regular_dofs"], sb.regular_dofs
+    assert abs(sb.iterations - EXPECT_BEAM["iterations"]) <= 2, sb.iterations
+    assert sb.residual <= 1e-4, sb.residual
+    assert rb2.stats.iterations == sb.iterations
+    check_launches(launches_b, sb.applies, canons_b, modes_b, "beam")
+    for a, v in enumerate(rb.velocity):
+        assert tuple(v.shape) == tuple(64 + (1 if d == a else 0) for d in range(3)), v.shape
+        assert bool(torch.isfinite(v).all()), f"beam: velocity {a} not finite"
+    del beam, solve_b, rb, rb2
+
+    # ---- 8 the host policy on test_recompile's ball at 96^3
+    from adaptiveviscositysolver_tpu_torch import convert
+
+    def ball(n, center_y, r=0.17):
+        h = 1.0 / n
+        x = (np.arange(n) + 0.5) * h
+        X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+        liquid = np.sqrt((X - 0.5) ** 2 + (Y - center_y) ** 2 + (Z - 0.5) ** 2) - r
+        fshapes = [tuple(n + (1 if d == a else 0) for d in range(3)) for a in range(3)]
+        vel = [np.zeros(fs) for fs in fshapes]
+        vel[1] = -0.5 * np.ones(fshapes[1])
+        return convert.fluid_state_from_numpy(
+            liquid, np.full_like(liquid, 1e3), vel, [np.zeros(fs) for fs in fshapes],
+            np.full(liquid.shape, 2.0), np.ones(liquid.shape), h, device=dev,
+            dtype=torch.float32)
+
+    cfg_ball = SolverConfig(octree_levels=3, tolerance=1e-3, max_iterations=5)
+    asyn = solver.make_solver(cfg_ball, device=dev)
+    sync = solver.make_solver(cfg_ball, async_probe=False, device=dev)
+    t = time.perf_counter()
+    ball_rel = 0.0
+    for i in range(7):
+        state_i = ball(N, 0.30 + 0.06 * i)
+        a_i, s_i = asyn(state_i, 0.01), sync(state_i, 0.01)
+        assert a_i.stats.solve_path == s_i.stats.solve_path == "cuda"
+        assert (a_i.stats.iterations, a_i.stats.octree_dofs) == (s_i.stats.iterations,
+                                                                 s_i.stats.octree_dofs), i
+        scale_i = max(float(v.abs().max()) for v in s_i.velocity)
+        rel_i = max(float((p - q).abs().max()) for p, q in zip(a_i.velocity, s_i.velocity))
+        rel_i /= scale_i
+        assert rel_i <= 1e-6, (i, rel_i)
+        ball_rel = max(ball_rel, rel_i)
+    translate_s = time.perf_counter() - t
+    info_a, info_s = asyn.cache_info(), sync.cache_info()
+    assert info_a["programs"] <= 3 and info_s["programs"] <= 3, (info_a, info_s)
+    drain = solver.make_solver(cfg_ball, device=dev)
+    drain(ball(N, 0.5, r=0.30), 0.01)
+    ((lv_d, w_peak),) = drain.cache_info()["windows"].items()
+    peak = solver._windows_volume(w_peak)
+    small = ball(N, 0.5, r=0.15)
+    vols = []
+    for _ in range(solver.SHRINK_AFTER + 2):
+        drain(small, 0.01)
+        w = drain.cache_info()["windows"]
+        assert lv_d in w, w
+        vols.append(solver._windows_volume(w[lv_d]))
+    log("policy", f"ball at {N}^3 translated 7 frames in {translate_s:.2f} s: async "
+                  f"{info_a['programs']} and sync {info_s['programs']} cached topologies, "
+                  f"velocity async vs sync within {ball_rel:.2e} of max; drained r 0.30 -> 0.15: "
+                  f"window volume {peak} then {vols}, {drain.cache_info()['programs']} "
+                  f"topologies")
+    assert vols[0] == peak, (vols, peak)
+    assert vols[-1] < 0.7 * peak, (vols, peak)
+    del asyn, sync, drain, small, state_i, a_i, s_i
+
+    # ---- 9 the probe tools' path, and T1/T2 against their plain versions
+    torch.cuda.synchronize()
+    probes.reset_launch_counts()
+    t = time.perf_counter()
+    cal = calibrate_bandwidth.run(15, 20, device=dev)
+    prof = profile_levels.run(N, 20, device=dev)
+    tools_s = time.perf_counter() - t
+    probe_launches = dict(probes.launch_counts)
+    assert probe_launches["banded_apply"] > 0 and probe_launches["stream_floor"] > 0, \
+        probe_launches
+    log("probes", f"tools ({tools_s:.2f} s): calibrate_bandwidth {json.dumps(cal)} | "
+                  f"profile_levels {json.dumps(prof)} | launches {probe_launches} | {smi}")
+    u_t1, c_t1 = calibrate_bandwidth.make_inputs(15, device=dev)
+    err["banded_apply"] = max_rel_err([("banded_apply", probes.banded_apply(u_t1, c_t1),
+                                        probes.plain_banded_apply(u_t1, c_t1))])
+    t1_plain_ms = call_ms(lambda: probes.plain_banded_apply(u_t1, c_t1), 5, dev)
+    t1_bytes = probes.probe_bytes([u_t1, *c_t1], outputs=1)
+    bounds["banded_apply"] = bound(t1_bytes, (2 * len(c_t1) - 1) * u_t1.numel())
+    sys96, _ = profile_levels.build(N, dev)
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    u96 = sys96.embed_tree({k: torch.randn(m.shape, generator=gen).to(dev) * m
+                            for k, m in sys96.active.items()})
+    fl_in = probes.floor_inputs(sys96.apply_A.level_args(u96)[0], sys96.apply_A.metas[0])
+    fl_rows = probes.window_rows(sys96.canons[0])
+    pairs = []
+    for w8 in (0.0, 1.0):
+        got_f = probes.stream_floor(fl_in, fl_rows, w8)
+        want_f = probes.plain_stream_floor(fl_in, fl_rows, w8)
+        for k in range(3):
+            assert not bool(got_f[k][:fl_rows[0]].any()) and not bool(got_f[k][fl_rows[1]:].any())
+            pairs.append((f"stream_floor i8 weight {w8} output {k}", got_f[k], want_f[k]))
+    err["stream_floor"] = max_rel_err(pairs)
+    t2_ms = call_ms(lambda: probes.stream_floor(fl_in, fl_rows), 20, dev)
+    t2_plain_ms = call_ms(lambda: probes.plain_stream_floor(fl_in, fl_rows), 5, dev)
+    t2_bytes = probes.probe_bytes(fl_in, 3, fl_rows)
+    n_f32 = sum(1 for x in fl_in if x.dtype == torch.float32)
+    bounds["stream_floor"] = bound(t2_bytes, n_f32 * (fl_rows[1] - fl_rows[0]) * fl_in[0][0].numel())
+    src = torch.randn(t2_bytes // 8, device=dev)
+    dst = torch.empty_like(src)
+    t2_copy_ms = call_ms(lambda: dst.copy_(src), 20, dev)
+    probe_rows = {
+        "banded_apply": dict(shape=list(u_t1.shape), bytes=t1_bytes, ms=cal["ms"],
+                             bound_ms=bounds["banded_apply"][0], copy_ms=cal["copy_ms"],
+                             plain_ms=t1_plain_ms),
+        "stream_floor": dict(shape=list(fl_in[0].shape), rows=list(fl_rows), bytes=t2_bytes,
+                             ms=t2_ms, bound_ms=bounds["stream_floor"][0], copy_ms=t2_copy_ms,
+                             plain_ms=t2_plain_ms),
+    }
+    for name, r in probe_rows.items():
+        # a time under the byte bound would mean bytes were not moved
+        assert r["ms"] >= r["bound_ms"], (name, r)
+        log("probes", f"{name} on {r['shape']}: {r['ms']:.4f} ms for {r['bytes'] / 1e6:.1f} MB "
+                      f"({r['bytes'] / r['ms'] / 1e6:.0f} GB/s), bound {r['bound_ms']:.4f} ms, "
+                      f"share of bound {r['bound_ms'] / r['ms']:.3f}; copy_ of the same bytes "
+                      f"{r['copy_ms']:.4f} ms ({r['bytes'] / r['copy_ms'] / 1e6:.0f} GB/s); "
+                      f"plain {r['plain_ms']:.3f} ms; vs plain max abs "
+                      f"{err[name][0]:.3e} (rel {err[name][1]:.2e}) | {smi}")
+    del sys96, u96, fl_in, u_t1, c_t1, src, dst
+
     measured = {
         "fused_tau": (launches["fused_tau"], err["fused_tau"][0], tau_ms, tau_plain_ms, lib_ms),
         "fused_dt": (launches["fused_dt"], err["fused_dt"][0], dt_ms, dt_plain_ms, lib_ms),
@@ -796,6 +1023,11 @@ def main():
                       lvl_plain_ms["tau_level"], lib2_ms),
         "dt_level": (launches2["dt_level"], err["dt_level"][0], lvl_ms["dt_level"],
                      lvl_plain_ms["dt_level"], lib2_ms),
+        # no one PyTorch call computes either probe's function
+        "banded_apply": (probe_launches["banded_apply"], err["banded_apply"][0], cal["ms"],
+                         t1_plain_ms, None),
+        "stream_floor": (probe_launches["stream_floor"], err["stream_floor"][0], t2_ms,
+                         t2_plain_ms, None),
     }
     kernels = []
     for name, (n_launch, err, ms, plain_ms, library_ms) in measured.items():
@@ -822,6 +1054,16 @@ def main():
         "b256": {"routes": [str(m) for m in modes3], "frame_ms": {"default": msd, "fused": msf},
                  "cg_iterations": [sd.iterations, sf.iterations],
                  "peak_gib": {"default": memd / 2**30, "fused": memf / 2**30}},
+        "b96_cache": {"build_system_ms": build_ms, "probe_ms": cache_stages[0]["probe"] * 1e3,
+                      "build_system_ms_192_cached": stages2["build_system"] * 1e3},
+        "b96_vs_v1": {"rel": diff96 / scale96, "v1_s": v1_96_s},
+        "beam64": {"cg_iterations": sb.iterations, "octree_dofs": sb.octree_dofs,
+                   "regular_dofs": sb.regular_dofs, "levels": len(sb.active_cells),
+                   "residual": sb.residual, "routes": [str(m) for m in modes_b],
+                   "windows": win_b, "cold_frame_s": beam_cold_s, "warm_frame_ms": beam_warm_ms},
+        "policy": {"programs": [info_a["programs"], info_s["programs"]],
+                   "async_vs_sync_rel": ball_rel, "drain_volumes": [peak] + vols},
+        "probes": probe_rows,
         "wall_s": time.perf_counter() - T0}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

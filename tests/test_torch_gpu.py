@@ -1,6 +1,7 @@
-"""The port's per-level kernels on a CUDA card (tau_level, dt_level) against
-their plain versions, and a routed solve on the card against the same solve
-on the CPU.
+"""The port's per-level kernels on a CUDA card (tau_level, dt_level) and its
+probe kernels (banded_apply, stream_floor) against their plain versions, a
+routed solve on the card against the same solve on the CPU, and make_solver's
+cached topology on the card against fresh solves.
 
 Nothing here imports JAX, so this file also runs on a machine that has a
 card and no JAX; there the suite's conftest (which sets JAX up) is left out:
@@ -17,9 +18,12 @@ output (float32, sums in another order), as in chip_smoke.py.
 import pytest
 import torch
 
+import dataclasses
+
 from adaptiveviscositysolver_tpu_torch import scenes, solver
 from adaptiveviscositysolver_tpu_torch.config import SolverConfig
 from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
+from adaptiveviscositysolver_tpu_torch.ops import probes
 
 TOL = 3e-5
 DT = 1.0 / 24.0
@@ -113,3 +117,63 @@ def test_routed_solve_on_card_matches_cpu(monkeypatch):
     scale = max(float(v.abs().max()) for v in want.velocity)
     for a in range(3):
         assert float((got.velocity[a].cpu() - want.velocity[a]).abs().max()) / scale < 5e-4
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,nb", [((104, 112, 128), 15), ((3, 10, 8), 5), ((2, 1, 4), 3),
+                                      ((2, 2, 4), 1)])
+def test_banded_apply_matches_plain_on_card(shape, nb):
+    """T1 on the tool's box and on boxes whose y extent is not a multiple of
+    the shifts (the roll wraps), against torch.roll's plain version."""
+    _need_card()
+    g = torch.Generator().manual_seed(nb)
+    u = torch.randn(shape, generator=g).cuda()
+    coeffs = [torch.randn(shape, generator=g).cuda() for _ in range(nb)]
+    before = probes.launch_counts["banded_apply"]
+    got = probes.banded_apply(u, coeffs)
+    assert probes.launch_counts["banded_apply"] == before + 1
+    _close({"out": got}, {"out": probes.plain_banded_apply(u, coeffs)}, (shape, nb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i8_weight", [0.0, 1.0])
+def test_stream_floor_matches_plain_on_card(card_frame, i8_weight):
+    """T2 over level 0 of buckling-32: the float32 inputs summed on the
+    window rows (with the int8 bytes' sum when the weight is 1), pad rows
+    exactly 0."""
+    sys_, u_log, _ = card_frame
+    args = sys_.apply_A.level_args(sys_.embed_tree(u_log))
+    inputs = probes.floor_inputs(args[0], sys_.apply_A.metas[0])
+    rows = probes.window_rows(sys_.canons[0])
+    got = probes.stream_floor(inputs, rows, i8_weight)
+    want = probes.plain_stream_floor(inputs, rows, i8_weight)
+    for k in range(3):
+        _close({"out": got[k]}, {"out": want[k]}, (i8_weight, k))
+        assert not bool(got[k][:rows[0]].any()) and not bool(got[k][rows[1]:].any())
+
+
+@pytest.mark.gpu
+def test_cached_make_solver_on_card_matches_fresh_solves():
+    """Two frames of the same topology and other data through one
+    make_solver (the second reuses the cached boxes, routes and buffers)
+    equal each frame solved by a fresh make_solver."""
+    _need_card()
+    cfg = SolverConfig(octree_levels=3, tolerance=1e-5)
+    first = scenes.buckling(n=32, device="cuda")
+    second = scenes.buckling(n=32, viscosity=35.0, device="cuda")
+    second = dataclasses.replace(second, velocity=tuple(0.5 * v for v in second.velocity))
+    solve = solver.make_solver(cfg, device="cuda")
+    got = [solve(first, DT), solve(second, DT)]
+    assert solve.cache_info()["programs"] == 1
+    for res, state in zip(got, (first, second)):
+        want = solver.make_solver(cfg, device="cuda")(state, DT)
+        assert res.stats.solve_path == want.stats.solve_path == "cuda"
+        assert res.stats.iterations == want.stats.iterations
+        scale = max(float(v.abs().max()) for v in want.velocity)
+        for a in range(3):
+            assert float((res.velocity[a] - want.velocity[a]).abs().max()) <= 1e-6 * scale
