@@ -10,20 +10,21 @@
 // The TPU kernel's x-slab grid, whole-plane VMEM slabs and manual DMAs have
 // no counterpart here: the work is split into two gather passes,
 //   tau_point: one thread per stress sample -> weighted stresses wte/wtc,
-//   dt_point:  one thread per face sample   -> out = mask*(D^T wtau + m u),
-//              zp (writes to level l+1) and zc (writes to level l-1),
+//   the tiled D^T pass (dt_tile.cuh): one block per tile of face samples
+//              -> out = mask*(D^T wtau + m u), zp (writes to level l+1) and
+//              zc (writes to level l-1),
 // so every output is written by exactly one thread: no atomics, and the
 // result does not depend on the launch order.
 //
 // The weighted stresses need not span the whole box: wte/wtc hold the x
 // rows [tau_x0, tau_x0 + tau_nx) only (a brick of the level plus its
-// halo, or the whole level), and every thread of a launch maps to a sample
-// of the x rows starting at row0 (sample_of).  That lets one level run as
-// a per-level tau/D^T pair ("split") or brick by brick over a bounded tau
-// scratch ("brick"), as well as in the all-level launches.  tau_point and
-// dt_point take kWhole = true where wte/wtc span the whole box (the
-// all-level launches: plain box addressing) and false for the level
-// launches (addressing from tau_x0).
+// halo, or the whole level), and every sample of a launch lies on the x
+// rows starting at row0 (sample_of).  That lets one level run as a
+// per-level tau/D^T pair ("split") or brick by brick over a bounded tau
+// scratch ("brick"), as well as in the all-level launches.  tau_point
+// takes kWhole = true where wte/wtc span the whole box (the all-level
+// launches: plain box addressing) and false for the level launches
+// (addressing from tau_x0).
 //
 // Reads outside the box return 0 (values) or OUTSIDE (kinds, code 3).
 // Kind grids arrive bit-packed, three 2-bit codes (code = -kind) per byte:
@@ -104,22 +105,6 @@ AVS_HD long long tau_lin(const AvsLevel& L, const int p[3]) {
   return ((long long)(p[0] - L.tau_x0) * L.cy + p[1]) * L.cz + p[2];
 }
 
-// A weighted stress at p: 0 outside the rows held and outside the box (the
-// rows held lie inside the box, so their test is the box's x test; the
-// caller's halo keeps the rows D^T needs inside them, see tau_rows in
-// ops/fused_apply.py).
-AVS_HD float tau_val(const float* a, const AvsLevel& L, const int p[3]) {
-  return p[0] >= L.tau_x0 && p[0] < L.tau_x0 + L.tau_nx && p[1] >= 0 && p[2] >= 0 &&
-                 p[1] < L.cy && p[2] < L.cz
-             ? a[tau_lin(L, p)]
-             : 0.0f;
-}
-
-template <bool kWhole>
-AVS_HD float wval(const float* a, const AvsLevel& L, const int p[3]) {
-  return kWhole ? val(a, L, p) : tau_val(a, L, p);
-}
-
 AVS_HD float flag(bool b) { return b ? 1.0f : 0.0f; }
 
 // Sum of u over the aligned 2x2 block, transverse to face axis f, holding p
@@ -145,13 +130,9 @@ struct Plane {
   float q, e, un;
 };
 
-AVS_HD Plane edge_plane(const AvsLevel& L, int a, int f, int d, const int s[3],
-                        bool enhanced, float inv) {
-  const int g = 3 - a - f;
-  int sm[3] = {s[0], s[1], s[2]};
-  sm[g] -= 1;
-  const float ae = flag(ek(L, a, s) == 0);
-  const int c0 = vk(L, f, sm), c1 = vk(L, f, s);
+// The planes from the kind codes c0 = vk_f(s - e_g), c1 = vk_f(s) and the
+// edge activity ae = [ek_a(s) == FLUID].
+AVS_HD Plane plane_of(int c0, int c1, float ae, int d, bool enhanced, float inv) {
   const float una0 = flag(c0 == 1), una1 = flag(c1 == 1);
   const float binv =
       inv * (1.0f - (una0 + una1) * (1.0f / 3.0f) + (una0 * una1) * (1.0f / 6.0f));
@@ -168,6 +149,14 @@ AVS_HD Plane edge_plane(const AvsLevel& L, int a, int f, int d, const int s[3],
   P.e = act * enh * base;
   P.un = una * ae * base;
   return P;
+}
+
+AVS_HD Plane edge_plane(const AvsLevel& L, int a, int f, int d, const int s[3],
+                        bool enhanced, float inv) {
+  const int g = 3 - a - f;
+  int sm[3] = {s[0], s[1], s[2]};
+  sm[g] -= 1;
+  return plane_of(vk(L, f, sm), vk(L, f, s), flag(ek(L, a, s) == 0), d, enhanced, inv);
 }
 
 // Weighted stresses at stress sample s: wte[a] = we[a] * (D u)_edge,a and
@@ -234,95 +223,6 @@ AVS_HD void tau_point(const AvsLevel& L, const int s[3], bool enhanced) {
         tau += flag(k == 1) * act_c * (0.25f * sign * inv) * val(L.cs[x], L, sp);
     }
     L.wtc[x][it] = L.wc[i] * tau;
-  }
-}
-
-// D^T at face sample v, as a gather: every stress sample whose term writes
-// v is visited and its coefficient rebuilt there.  out[f] is masked to FLUID
-// faces and carries the mass term; zp/zc stay unmasked (the caller masks
-// them at the cross-level add).
-template <bool kWhole = true>
-AVS_HD void dt_point(const AvsLevel& L, const int v[3], bool enhanced) {
-  const float inv = (float)L.inv_dxw;
-  const long long i = lin(L, v[0], v[1], v[2]);
-#pragma unroll
-  for (int f = 0; f < 3; ++f) {
-    float acc = 0.0f, zp = 0.0f, zc = 0.0f;
-#pragma unroll
-    for (int k = 1; k <= 2; ++k) {
-      const int a = (f + k) % 3, g = 3 - a - f;
-      const float* wte = L.wte[a];
-#pragma unroll
-      for (int d = 0; d < 2; ++d) {
-        // the slot offset is off = -e_g (d = 0) or 0; T1/T3 write v = s + off
-        int s[3] = {v[0], v[1], v[2]};
-        if (d == 0) s[g] += 1;
-        {
-          const Plane P = edge_plane(L, a, f, d, s, enhanced, inv);
-          const float w = wval<kWhole>(wte, L, s);
-          acc += (enhanced ? 0.5f * P.q - 0.25f * P.e : 0.5f * P.q) * w;
-          if (L.has_parent) {
-            const float dang = flag((s[f] & 1) != 0);
-            zp += 0.5f * P.un * (1.0f - dang) * w;
-          }
-        }
-        if (enhanced) {
-          // T2 with so = +1 came from s - e_a (even along a), so = -1 from
-          // s + e_a (odd along a)
-          int q[3] = {s[0], s[1], s[2]};
-          q[a] -= 1;
-          Plane P = edge_plane(L, a, f, d, q, enhanced, inv);
-          acc += 0.25f * P.e * flag((q[a] & 1) == 0) * wval<kWhole>(wte, L, q);
-          q[a] += 2;
-          P = edge_plane(L, a, f, d, q, enhanced, inv);
-          acc += 0.25f * P.e * flag((q[a] & 1) != 0) * wval<kWhole>(wte, L, q);
-        }
-        if (L.has_parent) {
-          const int kpv = pk(L, f, v);
-          const int t1 = (f + 1) % 3, t2 = (f + 2) % 3;
-#pragma unroll
-          for (int so = -1; so <= 1; so += 2) {
-            // T4 -> zp at v from stress s - so*e_f (parent face kind at v)
-            int q[3] = {s[0], s[1], s[2]};
-            q[f] -= so;
-            if (kpv == 0) {
-              const Plane P = edge_plane(L, a, f, d, q, enhanced, inv);
-              zp += P.un * flag((q[f] & 1) != 0) * 0.25f * wval<kWhole>(wte, L, q);
-            }
-            // T5 -> out: every p of v's transverse 2x2 block, from stress
-            // p + (s - v) - so*e_f, when the parent face kind at p is
-            // UNASSIGNED
-            const int b1 = v[t1] & ~1, b2 = v[t2] & ~1;
-#pragma unroll 1
-            for (int j = 0; j < 4; ++j) {
-              int p[3] = {v[0], v[1], v[2]};
-              p[t1] = b1 + (j & 1);
-              p[t2] = b2 + (j >> 1);
-              if (pk(L, f, p) != 1) continue;
-              int r[3] = {p[0] + s[0] - v[0], p[1] + s[1] - v[1], p[2] + s[2] - v[2]};
-              r[f] -= so;
-              const Plane P = edge_plane(L, a, f, d, r, enhanced, inv);
-              acc += P.un * flag((r[f] & 1) != 0) * 0.0625f * wval<kWhole>(wte, L, r);
-            }
-          }
-        }
-      }
-    }
-    // center stress of axis f: C1/C2 with slot d came from cell v - d*e_f
-    const int kv = vk(L, f, v);
-#pragma unroll
-    for (int d = 0; d < 2; ++d) {
-      const float sign = d == 0 ? -1.0f : 1.0f;
-      int s[3] = {v[0], v[1], v[2]};
-      s[f] -= d;
-      const float act_c = flag(ck(L, s) == 0);
-      const float w = wval<kWhole>(L.wtc[f], L, s);
-      acc += flag(kv == 0) * act_c * (sign * inv) * w;
-      if (L.has_child) zc += flag(kv == 1) * act_c * (0.25f * sign * inv) * w;
-    }
-    L.out[f][i] = flag(kv == 0) * (acc + L.m[f][i] * L.u[f][i]);
-    if (L.has_parent) L.zp[f][i] = zp;
-    if (L.has_child) L.zc[f][i] = zc;
   }
 }
 

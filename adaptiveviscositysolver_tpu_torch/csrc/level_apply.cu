@@ -24,9 +24,10 @@
 //
 // Bound: device-memory bytes, as for fused_apply.cu (the halo rows are
 // recomputed per brick; that is this design's cost, not the bound's).  The
-// per-point math is fused_apply.cuh's tau_point/dt_point; a thread maps to
-// a sample by sample_of, and wte/wtc are addressed from the scratch's own
-// first row (tau_lin), so the same code runs a whole level or a brick.
+// tau kernel runs fused_apply.cuh's tau_point, one thread per sample
+// (sample_of); the D^T kernel runs dt_tile.cuh's tiled routine, one block
+// per tile of the launch's rows.  wte/wtc are addressed from the scratch's
+// own first row (tau_lin), so the same code runs a whole level or a brick.
 //
 // The level descriptor is passed by value as a __grid_constant__ kernel
 // parameter: no descriptor copy to the device per launch.
@@ -36,7 +37,7 @@
 
 #include <cuda_runtime.h>
 
-#include "fused_apply.cuh"
+#include "dt_tile.cuh"
 
 namespace {
 
@@ -52,16 +53,23 @@ avs_tau_level_kernel(const __grid_constant__ AvsLevel L, long long total, int en
 }
 
 __global__ void __launch_bounds__(kThreads)
-avs_dt_level_kernel(const __grid_constant__ AvsLevel L, long long total, int enhanced) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  int p[3];
-  avs::sample_of(L, t, p);
-  avs::dt_point<false>(L, p, enhanced != 0);
+avs_dt_level_kernel(const __grid_constant__ AvsLevel L, int enhanced) {
+  extern __shared__ float smem[];
+  int o[3];
+  avs::tile_origin(L, blockIdx.x, o);
+  avs::dt_tile_block(L, o, enhanced != 0, smem);
 }
 
 unsigned blocks_for(long long total) {
   return (unsigned)((total + kThreads - 1) / kThreads);
+}
+
+// Lets the D^T kernel take kDtSmemBytes of dynamic shared memory (above
+// the 48 KB default), once per process.
+cudaError_t dt_prepare() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      avs_dt_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, avs::kDtSmemBytes);
+  return e;
 }
 
 }  // namespace
@@ -80,11 +88,29 @@ int avs_tau_level_launch(const void* level, long long total, int enhanced, void*
   return (int)cudaGetLastError();
 }
 
+// total: the launch's samples (its rows' cy*cz each, as in the descriptor)
 int avs_dt_level_launch(const void* level, long long total, int enhanced, void* stream) {
   if (total <= 0) return 0;
-  avs_dt_level_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-      *(const AvsLevel*)level, total, enhanced);
+  const AvsLevel& L = *(const AvsLevel*)level;
+  const cudaError_t e = dt_prepare();
+  if (e != cudaSuccess) return (int)e;
+  avs_dt_level_kernel<<<(unsigned)avs::tile_count(L), kThreads, avs::kDtSmemBytes,
+                        (cudaStream_t)stream>>>(L, enhanced);
   return (int)cudaGetLastError();
+}
+
+// dynamic shared memory of one D^T block
+long long avs_dt_smem_bytes() { return avs::kDtSmemBytes; }
+
+// resident D^T blocks per SM at this shared memory and register use (-1 on
+// an error)
+int avs_dt_blocks_per_sm() {
+  int n = 0;
+  if (dt_prepare() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, avs_dt_level_kernel, kThreads,
+                                                    avs::kDtSmemBytes) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // extern "C"

@@ -27,8 +27,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
                            "-Xptxas", "-v"]
 
 # library stem -> (main source, headers it includes)
-SOURCES = {"fused_apply": ("fused_apply.cu", ("fused_apply.cuh",)),
-           "level_apply": ("level_apply.cu", ("fused_apply.cuh",)),
+SOURCES = {"fused_apply": ("fused_apply.cu", ("fused_apply.cuh", "dt_tile.cuh")),
+           "level_apply": ("level_apply.cu", ("fused_apply.cuh", "dt_tile.cuh")),
            "probe_kernels": ("probe_kernels.cu", ("probe_kernels.cuh",))}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -57,13 +57,17 @@ def library_path(stem: str) -> Path:
 def build(*stems: str) -> Dict[str, dict]:
     """Compile the libraries of ``stems`` (default: all) that are not built
     yet, one ``nvcc`` per source, all started together.  Returns ``{stem:
-    {"seconds", "cached", "log"}}``; raises if an ``nvcc`` fails."""
+    {"seconds", "cached", "log"}}`` (the ``nvcc`` log, kept beside the
+    library, so a cached library still reports its registers); raises if
+    an ``nvcc`` fails."""
     stems = stems or tuple(SOURCES)
     procs = {}
     for stem in stems:
         out = library_path(stem)
         if out.exists():
-            build_log[stem] = {"seconds": 0.0, "cached": True, "log": ""}
+            log = out.with_suffix(".log")
+            build_log[stem] = {"seconds": 0.0, "cached": True,
+                               "log": log.read_text() if log.exists() else ""}
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -77,6 +81,7 @@ def build(*stems: str) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {stem} (exit {proc.returncode}):\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))

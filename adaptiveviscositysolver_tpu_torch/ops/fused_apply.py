@@ -661,31 +661,43 @@ def _frame(levels, metas, enhanced: bool):
     return words, start
 
 
+# bytes of kernel parameters a launch takes (the all-level D^T kernel gets
+# its AvsFrame by value)
+PARAM_LIMIT = 4096
+
+
 @functools.lru_cache(maxsize=None)
 def _library(stem: str) -> ctypes.CDLL:
     """``csrc/<stem>.cu``'s library, built at first use, with the argument
     types of its entry points set and its descriptor layout checked
-    against this module's.  ``fused_apply``: ``avs_tau_launch`` /
-    ``avs_dt_launch`` (device descriptor, threads, stream);
-    ``level_apply``: ``avs_tau_level_launch`` / ``avs_dt_level_launch``
-    (host descriptor, threads, enhanced, stream)."""
+    against this module's.  ``fused_apply``: ``avs_tau_launch`` (device
+    descriptor, threads, stream) / ``avs_dt_launch`` (host descriptor,
+    stream); ``level_apply``: ``avs_tau_level_launch`` /
+    ``avs_dt_level_launch`` (host descriptor, threads, enhanced, stream).
+    Both have ``avs_dt_smem_bytes`` (dynamic shared memory of a D^T
+    block) and ``avs_dt_blocks_per_sm`` (its resident blocks per SM)."""
     from . import _build
 
     lib = _build.load(stem)
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     if stem == "fused_apply":
         probe, want = lib.avs_frame_bytes, (MAX_LEVELS * _LEVEL_WORDS + 3) * 8
-        entries, argtypes = ("avs_tau_launch", "avs_dt_launch"), [vp, ll, vp]
+        entries = {"avs_tau_launch": [vp, ll, vp], "avs_dt_launch": [vp, vp]}
     else:
         probe, want = lib.avs_level_bytes, _LEVEL_WORDS * 8
-        entries = ("avs_tau_level_launch", "avs_dt_level_launch")
-        argtypes = [vp, ll, ctypes.c_int, vp]
+        entries = dict.fromkeys(("avs_tau_level_launch", "avs_dt_level_launch"),
+                                [vp, ll, ctypes.c_int, vp])
     probe.argtypes, probe.restype = [], ll
     if probe() != want:
         raise RuntimeError(f"descriptor layout mismatch between csrc/{stem}.cu and Python")
-    for name in entries:
+    if want > PARAM_LIMIT:
+        raise RuntimeError(f"a {want} B descriptor does not fit {PARAM_LIMIT} B of kernel "
+                           "parameters")
+    for name, argtypes in entries.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.avs_dt_smem_bytes.argtypes, lib.avs_dt_smem_bytes.restype = [], ll
+    lib.avs_dt_blocks_per_sm.argtypes, lib.avs_dt_blocks_per_sm.restype = [], ctypes.c_int
     return lib
 
 
@@ -693,12 +705,16 @@ def _launch(entry: str, levels, metas, enhanced: bool) -> None:
     lib = _library("fused_apply")
     words, total = _frame(levels, metas, enhanced)
     dev = levels[0]["u0"].device
-    # an asynchronous copy on the current stream: from pageable memory it
-    # returns once the words are staged, without waiting for the device, so
-    # the host keeps queueing work ahead of the card
-    desc = torch.from_numpy(words).to(dev, non_blocking=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, entry)(desc.data_ptr(), total, stream)
+    if entry == "avs_dt_launch":
+        # the launch copies the descriptor into the kernel's parameters
+        err = lib.avs_dt_launch(words.ctypes.data, stream)
+    else:
+        # the tau kernel reads it from the device: an asynchronous copy on
+        # the current stream (from pageable memory it returns once the
+        # words are staged, without waiting for the device)
+        desc = torch.from_numpy(words).to(dev, non_blocking=True)
+        err = lib.avs_tau_launch(desc.data_ptr(), total, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: cudaError {err}")
 

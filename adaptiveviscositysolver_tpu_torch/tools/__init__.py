@@ -4,10 +4,13 @@ run as ``python -m adaptiveviscositysolver_tpu_torch.tools.<name>``:
 * ``calibrate_bandwidth`` -- the banded apply (T1) against ``copy_`` of
   the same bytes: the card's achievable streaming rate;
 * ``profile_levels`` -- one apply taken apart: each level's kernels, the
-  level-0 stream floor (T2) and a one-op floor.
+  level-0 stream floor (T2) and a one-op floor;
+* ``time_kernels`` -- each matvec kernel's time per apply at buckling-96,
+  -192 and -256's routes (card only; it times another checkout's package
+  too, for an A/B in one run).
 
-Both run on the card (``--device cpu`` exists for the tests; its times are
-host-clock times of the plain versions, not device times).
+The first two run on the card (``--device cpu`` exists for the tests; its
+times are host-clock times of the plain versions, not device times).
 """
 
 from __future__ import annotations

@@ -10,13 +10,16 @@ Phases (one line each, elapsed seconds first):
   0 device   -- card name and power limit (nvidia-smi), torch version; no
                 CUDA device is a failure, never a CPU run
   1 build    -- nvcc builds csrc/ into build/torch_kernels/, one nvcc per
-                source, all started together (budget 60 s)
+                source, all started together (budget 60 s); the D^T kernels'
+                registers, spills and shared memory (ptxas) and resident
+                blocks per SM
   2 kernels  -- on buckling-96's real frame data, every kernel against its
                 plain version on the card (3e-5 * max per level and output),
                 and the whole fused apply against its plain version and the
                 whole-array operator; kernel / plain times with CUDA events;
                 the library yardstick: the assembled CSR system (export.py)
-                times A @ x on the card, checked against the apply
+                times A @ x on the card, checked against the apply; each
+                kernel's share of its bound and its time over the CSR call's
   2b routes  -- every route on the same frame: split, bricked (>= 3 bricks
                 on level 0) and fused levels mixed, and every level bricked;
                 tau_level / dt_level against their plain versions per level,
@@ -39,15 +42,17 @@ Phases (one line each, elapsed seconds first):
                 checked against the JAX package's counts (4 levels, 820288 /
                 2209612 DOFs, 337 +- 2 iterations, residual <= 1e-4); every
                 kernel of those routes (the routed levels' bricks, the fused
-                group) against its plain version at these shapes; A/B of the
-                default routes against every level fused
+                group) against its plain version at these shapes, with its
+                share of its bound and its time over the CSR call's; A/B of
+                the default routes against every level fused
   6 256      -- scenes.buckling(256): one frame on the default routes (brick
                 and split) against one with every level fused (an unbounded
                 budget), each through a make_solver of its own: launch counts
                 against each frame's routes, same
                 DOFs, iterations +- 2, velocity within rel 5e-4; every kernel
                 of the default routes (level 0's bricks, level 1 split, the
-                fused group) against its plain version; peak device memory
+                fused group) against its plain version, and its time per
+                apply; peak device memory
   7 beam     -- scenes.beam(64) through make_solver, the scene that fills ~7 %
                 of its domain: the JAX package's counts (BENCH_r04.json: 262
                 +- 2 iterations, 22064 / 32336 DOFs, 3 levels), residual <=
@@ -71,8 +76,10 @@ buckling-96 (only the first probes; one cached topology; the cold and cached
 build_system times) and the cuda frame against the float64 whole-array
 solve of the same frame (velocity within rel 5e-4, iterations +- 2).
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
-and ``{"ok": true, "device": {...}}``.  Every failed check raises; the whole
+The last lines are a ``{"kernels": [...]}`` JSON line (fused_dt and
+dt_level also carry their registers, spill bytes, shared memory per block
+and resident blocks per SM), the nvidia-smi line, and ``{"ok": true,
+"device": {...}}``.  Every failed check raises; the whole
 run is bounded by an in-process deadline.  It imports nothing of JAX.
 """
 
@@ -80,6 +87,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -179,6 +187,28 @@ def trace_frame(solve, state, dt, path):
     device_events = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                      if e.get("cat") in DEVICE_CATS and "dur" in e]
     return res, spans, device_events
+
+
+def ptxas_info(log, kernel):
+    """Registers, spill bytes (stores + loads) and static shared memory of
+    one kernel from nvcc's ``-Xptxas -v`` log; None where the library came
+    from the cache (no log)."""
+    m = re.search(rf"Compiling entry function '[^']*{kernel}E[^']*'(.*?Used \d+ registers[^\n]*)",
+                  log, re.S)
+    if not m:
+        return None
+    body = m.group(1)
+    smem = re.search(r"(\d+) bytes smem", body)
+    return {"registers": int(re.search(r"Used (\d+) registers", body).group(1)),
+            "spill_bytes": sum(int(x) for x in re.findall(r"(\d+) bytes spill", body)),
+            "static_smem_bytes": int(smem.group(1)) if smem else 0}
+
+
+def vs_bound_and_library(name, ms, bound_ms, library_ms):
+    """Log text: a kernel's share of its bound and its time over the
+    library call's."""
+    return (f"{name} share of bound {bound_ms / ms:.4f}, {ms / library_ms:.1f}x the CSR call "
+            f"({ms:.4f} / {library_ms:.4f} ms)")
 
 
 def max_rel_err(pairs):
@@ -299,61 +329,6 @@ def worst(*errs):
     return (max(e[0] for e in errs), max(e[1] for e in errs))
 
 
-def time_level_pair(args, meta, canon, enh, reps, plain=False):
-    """Milliseconds per apply of one routed level's tau_level and dt_level
-    launches (every x-row range, in the apply's order), from CUDA events
-    around each launch; ``plain``: the plain versions."""
-    import torch
-    from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
-
-    dev = args["u0"].device
-    ranges = canon.row_ranges()
-    taus = [_tau_bufs(meta, fa.tau_rows(r, meta.shape[0]), dev) for r in ranges]
-    out = fa.dt_outputs(meta, dev)
-    tau_fn, dt_fn = ((fa.plain_tau_level, fa.plain_dt_level) if plain
-                     else (fa.tau_level, fa.dt_level))
-
-    def one(ev=None):
-        for i, rows in enumerate(ranges):
-            t = fa.tau_rows(rows, meta.shape[0])
-            ev and ev[i][0].record()
-            tau_fn(args, meta, enh, t, taus[i])
-            ev and ev[i][1].record()
-            dt_fn(args, taus[i], t[0], meta, enh, rows, out)
-            ev and ev[i][2].record()
-
-    one()
-    torch.cuda.synchronize()
-    tau_ms = dt_ms = 0.0
-    for _ in range(reps):
-        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in ranges]
-        one(ev)
-        torch.cuda.synchronize()
-        tau_ms += sum(e[0].elapsed_time(e[1]) for e in ev)
-        dt_ms += sum(e[1].elapsed_time(e[2]) for e in ev)
-    return tau_ms / reps, dt_ms / reps
-
-
-def time_fused_levels(args, metas, enh, reps):
-    """Milliseconds per apply of fused_tau and fused_dt over these levels."""
-    import torch
-    from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
-
-    taus = fa.fused_tau(args, metas, enh)
-    fa.fused_dt(args, taus, metas, enh)
-    torch.cuda.synchronize()
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(reps)]
-    for e in ev:
-        e[0].record()
-        fa.fused_tau(args, metas, enh, out=taus)
-        e[1].record()
-        fa.fused_dt(args, taus, metas, enh)
-        e[2].record()
-    torch.cuda.synchronize()
-    return (sum(e[0].elapsed_time(e[1]) for e in ev) / reps,
-            sum(e[1].elapsed_time(e[2]) for e in ev) / reps)
-
-
 def csr_yardstick(sys_, u_log, levels, reps):
     """The library call: the assembled system of the stress blocks of
     ``levels`` (mass of those levels only), exported on the host
@@ -404,6 +379,8 @@ def main():
     from adaptiveviscositysolver_tpu_torch.ops import _build, probes
     from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
     from adaptiveviscositysolver_tpu_torch.tools import calibrate_bandwidth, call_ms, profile_levels
+    from adaptiveviscositysolver_tpu_torch.tools.time_kernels import (time_fused_levels,
+                                                                      time_level_pair)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -425,8 +402,16 @@ def main():
                      + " | ".join(regs))
     log("build", f"total {build_s:.2f} s into {_build.BUILD_DIR}")
     assert build_s <= BUILD_BUDGET_S, f"build took {build_s:.1f} s > {BUILD_BUDGET_S} s"
-    for stem in ("fused_apply", "level_apply"):
-        fa._library(stem)     # load, bind, check the descriptor layout
+    dt_design = {}
+    for stem, name, kernel in (("fused_apply", "fused_dt", "avs_dt_kernel"),
+                               ("level_apply", "dt_level", "avs_dt_level_kernel")):
+        lib = fa._library(stem)     # load, bind, check the descriptor layout
+        info = ptxas_info(builds[stem]["log"], kernel) or {}
+        info.update(smem_bytes=lib.avs_dt_smem_bytes() + info.get("static_smem_bytes", 0),
+                    blocks_per_sm=lib.avs_dt_blocks_per_sm())
+        info.pop("static_smem_bytes", None)
+        dt_design[name] = info
+        log("build", f"{name} ({kernel}): {info}")
     probes._library()
 
     # ---- 2 kernels against their plain versions, on buckling-96's frame
@@ -462,8 +447,9 @@ def main():
                    f"(rel {app_rel:.2e}), vs whole-array v1 {v1_abs:.3e} (rel {v1_rel:.2e})")
 
     reps = 50
-    tau_ms = cuda_ms(lambda: fa.fused_tau(args, metas, enh), reps)
-    dt_ms = cuda_ms(lambda: fa.fused_dt(args, taus_p, metas, enh), reps)
+    # each launch timed on the device (queued behind a spin): the D^T
+    # kernel takes less time on the card than its wrapper on the host
+    tau_ms, dt_ms = time_fused_levels(args, metas, enh, reps)
     tau_plain_ms = cuda_ms(lambda: fa._plain_tau(args, metas, enh), 5)
     dt_plain_ms = cuda_ms(lambda: fa._plain_dt(args, taus_p, metas, enh), 5)
     apply_ms = cuda_ms(lambda: apply_k(u), 20)
@@ -485,6 +471,8 @@ def main():
     log("kernels", f"library: CSR A @ x {lib_ms:.4f} ms per apply ({nnz} nonzeros, export "
                    f"{export_s:.2f} s on the host), vs the kernels' apply max abs {lib_abs:.3e} "
                    f"(rel {lib_rel:.2e}) | {smi}")
+    log("kernels", "; ".join(vs_bound_and_library(k, m, bounds[k][0], lib_ms)
+                             for k, m in (("fused_tau", tau_ms), ("fused_dt", dt_ms))))
     del got, want, cropped, lib_y
 
     # ---- 2b every route on the same frame
@@ -772,6 +760,8 @@ def main():
                f"bound {bounds['dt_level'][0]:.4f} ms = {nb2['dt'] / 1e6:.1f} MB); library: CSR "
                f"A @ x of those levels' blocks {lib2_ms:.4f} ms ({nnz2} nonzeros, export "
                f"{export2_s:.2f} s on the host) | {smi}")
+    log("192", "; ".join(vs_bound_and_library(k, lvl_ms[k], bounds[k][0], lib2_ms)
+                         for k in ("tau_level", "dt_level")))
 
     # A/B on the same frame: the default routes against every level fused
     fused_modes = ["fused"] * lv2
@@ -863,7 +853,19 @@ def main():
     log("256", f"default routes vs every level fused: velocity max diff / scale "
                f"{diff3 / scale3:.2e}, iterations {sd.iterations} vs {sf.iterations} | kernels vs plain: "
                + ", ".join(f"{k} max abs {v[0]:.3e} (rel {v[1]:.2e})" for k, v in e3.items()))
-    del sys3, u3
+    # each kernel of the default routes per apply (back to back, L2 warm)
+    args3, metas3 = sys3.apply_A.level_args(u3), sys3.apply_A.metas
+    fused3 = [l for l, m in enumerate(modes3) if m == "fused"]
+    k3 = dict(zip(("fused_tau", "fused_dt"), time_fused_levels(
+        [args3[l] for l in fused3], [metas3[l] for l in fused3], enh, 20)))
+    for l, m in enumerate(modes3):
+        if m != "fused":
+            k3[f"level {l} {m}"] = time_level_pair(args3[l], metas3[l], sys3.canons[l], enh, 20)
+    log("256", f"per apply: fused group {fused3}: fused_tau {k3['fused_tau']:.4f}, fused_dt "
+               f"{k3['fused_dt']:.4f} ms; "
+               + "; ".join(f"{k}: tau_level {v[0]:.4f}, dt_level {v[1]:.4f} ms"
+                           for k, v in k3.items() if k.startswith("level")) + f" | {smi}")
+    del sys3, u3, args3
 
     # ---- 7 beam-64 through make_solver: the crop windows' scene
     beam = scenes.beam(n=64, device=dev)
@@ -1036,7 +1038,7 @@ def main():
             "source": f"adaptiveviscositysolver_tpu_torch/csrc/{SOURCE[name]}",
             "replaces": REPLACES[name], "launches": n_launch, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1], "library_ms": library_ms,
+            "bound_by": bounds[name][1], "library_ms": library_ms, **dt_design.get(name, {}),
         })
     print(json.dumps({"result": {
         "warm_frame_ms_median": statistics.median(warm), "cold_frame_s": cold_s,
@@ -1053,7 +1055,8 @@ def main():
                  "level0_ms": {"routed": l0_routed, "split": l0_split, "fused": l0_fused}},
         "b256": {"routes": [str(m) for m in modes3], "frame_ms": {"default": msd, "fused": msf},
                  "cg_iterations": [sd.iterations, sf.iterations],
-                 "peak_gib": {"default": memd / 2**30, "fused": memf / 2**30}},
+                 "peak_gib": {"default": memd / 2**30, "fused": memf / 2**30},
+                 "kernel_ms": k3},
         "b96_cache": {"build_system_ms": build_ms, "probe_ms": cache_stages[0]["probe"] * 1e3,
                       "build_system_ms_192_cached": stages2["build_system"] * 1e3},
         "b96_vs_v1": {"rel": diff96 / scale96, "v1_s": v1_96_s},

@@ -32,9 +32,11 @@ from adaptiveviscositysolver_tpu import operator as joperator
 from adaptiveviscositysolver_tpu import stencils as jstencils
 from adaptiveviscositysolver_tpu.ops import pallas_apply as jpa
 from adaptiveviscositysolver_tpu.solver import _tight_windows as jtight
-from adaptiveviscositysolver_tpu_torch import classify, octree, solver, stencils
+from adaptiveviscositysolver_tpu_torch import classify, octree, scenes, solver, stencils
+from adaptiveviscositysolver_tpu_torch.config import SolverConfig
 from adaptiveviscositysolver_tpu_torch.ops import arrayops as tops
 from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
+from adaptiveviscositysolver_tpu_torch.ops.arrayops import face_shape
 from tests.test_operator import build_case
 from tests.test_torch_stages import N, T, port_test_env  # noqa: F401
 
@@ -207,23 +209,22 @@ def test_frame_data_matches_jax(fused_case):
             assert int(arr[0, 0, 0]) == fa.PACK_FILL and int(arr[-1, -1, -1]) == fa.PACK_FILL
 
 
-# A host loop over the kernels' per-point math (csrc/fused_apply.cuh is
-# __host__ __device__): the same arithmetic and thread-to-sample mapping the
-# CUDA kernels run, one thread after another, so the algebra and the level
-# and brick addressing are checked here without a card.
+# A host loop over the kernels' math (csrc/fused_apply.cuh and
+# csrc/dt_tile.cuh are __host__ __device__): tau_point thread after thread,
+# and the tiled D^T routine block after block, the block's shared memory a
+# host buffer staged as the kernels stage it, so the algebra, the level and
+# brick addressing and the tile reach are checked here without a card.  The
+# tile extents (DT_TILE) leave partial tiles at the fixtures' box ends.
+DT_TILE = (6, 4, 10)
 HOST_LOOP = r"""
-#include "fused_apply.cuh"
+#include "dt_tile.cuh"
 extern "C" {
 long long host_frame_bytes() { return (long long)sizeof(AvsFrame); }
 long long host_level_bytes() { return (long long)sizeof(AvsLevel); }
+long long host_reach_faults() { return avs::avs_host_reach_faults; }
 void host_tau(const AvsFrame* F) {
   for (long long g = 0; g < F->total; ++g) {
     int p[3]; int l = avs::locate(*F, g, p); avs::tau_point(F->lv[l], p, F->enhanced != 0);
-  }
-}
-void host_dt(const AvsFrame* F) {
-  for (long long g = 0; g < F->total; ++g) {
-    int p[3]; int l = avs::locate(*F, g, p); avs::dt_point(F->lv[l], p, F->enhanced != 0);
   }
 }
 void host_tau_level(const AvsLevel* L, int enhanced) {
@@ -231,9 +232,36 @@ void host_tau_level(const AvsLevel* L, int enhanced) {
     int p[3]; avs::sample_of(*L, t, p); avs::tau_point<false>(*L, p, enhanced != 0);
   }
 }
+static void host_dt_block(const AvsLevel& L, const int o[3], bool enhanced) {
+  static float w[6][avs::kDtRegion];
+  static unsigned code[avs::kDtRegion];
+  const float* src[6] = {L.wte[0], L.wte[1], L.wte[2], L.wtc[0], L.wtc[1], L.wtc[2]};
+  for (int r = 0; r < avs::kDtRegion; ++r) {
+    int p[3]; avs::region_pos(o, r, p);
+    long long idx = 0; const bool ok = avs::tau_index(L, p, &idx);
+    for (int k = 0; k < 6; ++k) w[k][r] = ok ? src[k][idx] : 0.0f;
+    code[r] = avs::kind_code(L, p);
+  }
+  static avs::Coef coef[avs::kDtCoefs];
+  for (int k = 0; k < avs::kDtCoefs; ++k) coef[k] = avs::coef_entry(k, enhanced, (float)L.inv_dxw);
+  avs::DtTile T;
+  for (int k = 0; k < 6; ++k) T.w[k] = w[k];
+  T.code = code;
+  T.coef = coef;
+  for (int d = 0; d < 3; ++d) T.o[d] = o[d];
+  for (int k = 0; k < avs::kDtSamples; ++k) {
+    int v[3]; avs::tile_sample(o, k, v);
+    if (avs::in_launch(L, v)) avs::dt_tile_point(L, T, v, enhanced);
+  }
+}
+void host_dt(const AvsFrame* F) {
+  for (long long b = 0; b < avs::frame_tiles(*F); ++b) {
+    int o[3]; int l = avs::locate_tile(*F, b, o); host_dt_block(F->lv[l], o, F->enhanced != 0);
+  }
+}
 void host_dt_level(const AvsLevel* L, int enhanced) {
-  for (long long t = 0; t < L->count; ++t) {
-    int p[3]; avs::sample_of(*L, t, p); avs::dt_point<false>(*L, p, enhanced != 0);
+  for (long long b = 0; b < avs::tile_count(*L); ++b) {
+    int o[3]; avs::tile_origin(*L, b, o); host_dt_block(*L, o, enhanced != 0);
   }
 }
 }
@@ -247,16 +275,28 @@ def host_kernels(tmp_path_factory):
     d = tmp_path_factory.mktemp("host_kernels")
     (d / "host_loop.cpp").write_text(HOST_LOOP)
     csrc = Path(fa.__file__).resolve().parent.parent / "csrc"
-    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", f"-I{csrc}", "-o",
+    tile = [f"-DAVS_DT_{ax}={n}" for ax, n in zip("XYZ", DT_TILE)]
+    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", f"-I{csrc}", *tile, "-o",
                     str(d / "libhost.so"), str(d / "host_loop.cpp")], check=True,
                    capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(d / "libhost.so"))
     lib.host_frame_bytes.restype = lib.host_level_bytes.restype = ctypes.c_longlong
+    lib.host_reach_faults.restype = ctypes.c_longlong
     lib.host_tau.argtypes = lib.host_dt.argtypes = [ctypes.c_void_p]
     lib.host_tau_level.argtypes = lib.host_dt_level.argtypes = [ctypes.c_void_p, ctypes.c_int]
     assert lib.host_frame_bytes() == (fa.MAX_LEVELS * fa._LEVEL_WORDS + 3) * 8
     assert lib.host_level_bytes() == fa._LEVEL_WORDS * 8
     return lib
+
+
+def _nan_outputs(meta):
+    """D^T output buffers filled with NaN: an element the routine does not
+    write fails the comparison."""
+    return {n: torch.full(meta.shape, float("nan")) for n in fa._dt_output_names(meta)}
+
+
+def _window(s, canons, l, f):
+    return fa.embed(torch.ones(face_shape(s["rpl"][l], f), dtype=torch.bool), canons[l], False)
 
 
 def _close(got, want, what):
@@ -267,49 +307,182 @@ def _close(got, want, what):
         assert err <= 3e-5 * scale, (what, n, err, scale)
 
 
-def test_kernel_math_on_host_matches_plain(fused_case, host_kernels):
-    """csrc's tau_point / dt_point, compiled for the CPU and fed the same
-    descriptor words the CUDA launches get, equal tau_plain / dt_plain: the
-    all-level launches, and the level launches over a whole level
+def _host_matches_plain(host, args, metas, canons, enh, windows, what):
+    """csrc's tau_point and tiled D^T routine on the host, fed the same
+    descriptor words the CUDA launches get, against tau_plain / dt_plain:
+    the all-level launches, and the level launches over a whole level
     ("split") and brick by brick (4-row bricks; the scratch of each holds
-    the brick plus the halo, from its own first row)."""
+    the brick plus the halo, from its own first row).  The D^T outputs
+    start as NaN, so every element of the launch's rows is written; out is
+    exactly 0 off the windows (``windows[l][f]``, the pads); no read leaves
+    a tile's staged region."""
+    taus = [{n: torch.empty(m.shape) for n in fa.TAU_NAMES} for m in metas]
+    words, _ = fa._frame([{**a, **t} for a, t in zip(args, taus)], metas, enh)
+    host.host_tau(words.ctypes.data)
+    outs = [_nan_outputs(m) for m in metas]
+    words, _ = fa._frame([{**a, **t, **o} for a, t, o in zip(args, taus, outs)], metas, enh)
+    faults = host.host_reach_faults()
+    host.host_dt(words.ctypes.data)
+    want_t = fa._plain_tau(args, metas, enh)
+    want_o = fa._plain_dt(args, taus, metas, enh)
+    for l in range(len(metas)):
+        _close(taus[l], want_t[l], (what, l))
+        _close(outs[l], want_o[l], (what, l))
+        for f in range(3):
+            assert not outs[l][f"out{f}"][~windows[l][f]].any(), (what, l, f)
+    for l, (a, meta, canon) in enumerate(zip(args, metas, canons)):
+        for brick in (None, 4):
+            out = _nan_outputs(meta)
+            for rows in dataclasses.replace(canon, brick=brick).row_ranges():
+                t0, t1 = fa.tau_rows(rows, meta.shape[0])
+                tau = {n: torch.empty((t1 - t0,) + meta.shape[1:]) for n in fa.TAU_NAMES}
+                words = fa._level_words({**a, **tau}, meta, rows=(t0, t1), tau_x0=t0,
+                                        tau_nx=t1 - t0)
+                host.host_tau_level(words.ctypes.data, int(enh))
+                _close(tau, {n: want_t[l][n][t0:t1] for n in fa.TAU_NAMES},
+                       (what, l, brick, rows))
+                words = fa._level_words({**a, **tau, **out}, meta, rows=rows, tau_x0=t0,
+                                        tau_nx=t1 - t0)
+                host.host_dt_level(words.ctypes.data, int(enh))
+            _close(out, want_o[l], (what, l, brick))
+    assert host.host_reach_faults() == faults, what
+
+
+def test_kernel_math_on_host_matches_plain(fused_case, host_kernels):
+    """The host build of the kernels' math against the plain versions on
+    every fixture (see _host_matches_plain), with tile extents that leave a
+    partial tile on some axis of some level."""
     c, s = fused_case, fused_case["sys"]
     enh = c["case"]["cfg"].use_enhanced_gradients
     apply_A, embed_tree, _ = fa.make_fused_operator(c["frame"], c["canons"], s["active"],
                                                     s["rpl"], c["case"]["dx"], enh)
     g = torch.Generator().manual_seed(1)
     u = embed_tree({k: torch.randn(m.shape, generator=g) * m for k, m in s["active"].items()})
-    args, metas = apply_A.level_args(u), apply_A.metas
-    taus = [{n: torch.empty(m.shape) for n in ("wte0", "wte1", "wte2", "wtc0", "wtc1", "wtc2")}
-            for m in metas]
-    words, _ = fa._frame([{**a, **t} for a, t in zip(args, taus)], metas, enh)
-    host_kernels.host_tau(words.ctypes.data)
-    outs = [{n: torch.empty(m.shape) for n in
-             [f"out{f}" for f in range(3)]
-             + ([f"zp{f}" for f in range(3)] if m.has_parent else [])
-             + ([f"zc{f}" for f in range(3)] if m.has_child else [])} for m in metas]
-    words, _ = fa._frame([{**a, **t, **o} for a, t, o in zip(args, taus, outs)], metas, enh)
-    host_kernels.host_dt(words.ctypes.data)
-    want_t = fa._plain_tau(args, metas, enh)
-    want_o = fa._plain_dt(args, taus, metas, enh)
-    for l in range(len(metas)):
-        _close(taus[l], want_t[l], (c["kind"], l))
-        _close(outs[l], want_o[l], (c["kind"], l))
-    for l, (a, meta, canon) in enumerate(zip(args, metas, c["canons"])):
-        for brick in (None, 4):
-            out = fa.dt_outputs(meta, "cpu")
-            for rows in dataclasses.replace(canon, brick=brick).row_ranges():
-                t0, t1 = fa.tau_rows(rows, meta.shape[0])
-                tau = {n: torch.empty((t1 - t0,) + meta.shape[1:]) for n in fa.TAU_NAMES}
-                words = fa._level_words({**a, **tau}, meta, rows=(t0, t1), tau_x0=t0,
-                                        tau_nx=t1 - t0)
-                host_kernels.host_tau_level(words.ctypes.data, int(enh))
-                _close(tau, {n: want_t[l][n][t0:t1] for n in fa.TAU_NAMES},
-                       (c["kind"], l, brick, rows))
-                words = fa._level_words({**a, **tau, **out}, meta, rows=rows, tau_x0=t0,
-                                        tau_nx=t1 - t0)
-                host_kernels.host_dt_level(words.ctypes.data, int(enh))
-            _close(out, want_o[l], (c["kind"], l, brick))
+    metas = apply_A.metas
+    assert any(m.shape[d] % DT_TILE[d] for m in metas for d in range(3))
+    windows = [[_window(s, c["canons"], l, f) for f in range(3)] for l in range(len(metas))]
+    _host_matches_plain(host_kernels, apply_A.level_args(u), metas, c["canons"], enh, windows,
+                        c["kind"])
+
+
+# ---------------------------------------------------------------------------
+# C3: the reach of the D^T pass past a brick, and a window without margin
+# ---------------------------------------------------------------------------
+
+
+def _dt_rows(host, args, meta, tau_full, t0, t1, rows, enh, plain):
+    """out/zp/zc of one level's rows from the weighted stresses rows [t0,
+    t1) of ``tau_full``, by the host tile routine or the plain version."""
+    tau = {n: tau_full[n][t0:t1].clone() for n in fa.TAU_NAMES}
+    out = _nan_outputs(meta)
+    if plain:
+        fa.plain_dt_level(args, tau, t0, meta, enh, rows, out)
+    else:
+        words = fa._level_words({**args, **tau, **out}, meta, rows=rows, tau_x0=t0,
+                                tau_nx=t1 - t0)
+        host.host_dt_level(words.ctypes.data, int(enh))
+    return {n: o[rows[0]:rows[1]] for n, o in out.items()}
+
+
+def _reach_past_bricks(host, args, meta, enh, brick, what):
+    """D^T on a brick of x rows [r0, r1) (even origin and extent) reads the
+    weighted stresses of rows r0 - 1 to r1 and no others: with every other
+    row of a wider scratch NaN, the brick's outputs are unchanged (host tile
+    routine and plain version), and ``tau_rows`` holds that reach.  Returns
+    whether zeroing row r0 - 1, or row r1, changed some output (the rows
+    are read by a live term)."""
+    cx = meta.shape[0]
+    full = fa._plain_tau([args], [meta], enh)[0]
+    needed = [False, False]
+    for r0 in range(0, cx, brick):
+        rows = (r0, min(cx, r0 + brick))
+        t0, t1 = max(0, r0 - 2), min(cx, rows[1] + 2)
+        lo, hi = max(0, r0 - 1), min(cx, rows[1] + 1)
+        h0, h1 = fa.tau_rows(rows, cx)
+        assert h0 <= lo and h1 >= hi, (what, rows, fa.TAU_HALO)
+        poisoned = {n: t.clone() for n, t in full.items()}
+        for t in poisoned.values():
+            t[:lo] = float("nan")
+            t[hi:] = float("nan")
+        for plain in (False, True):
+            base = _dt_rows(host, args, meta, full, t0, t1, rows, enh, plain)
+            got = _dt_rows(host, args, meta, poisoned, t0, t1, rows, enh, plain)
+            for n in base:
+                assert torch.equal(got[n], base[n]), (what, rows, plain, n)
+        base = _dt_rows(host, args, meta, full, t0, t1, rows, enh, False)
+        for side, row in enumerate((r0 - 1, rows[1])):
+            if 0 <= row < cx:
+                cut = {n: t.clone() for n, t in full.items()}
+                for t in cut.values():
+                    t[row] = 0.0
+                got = _dt_rows(host, args, meta, cut, t0, t1, rows, enh, False)
+                needed[side] |= any(not torch.equal(got[n], base[n]) for n in base)
+    return needed
+
+
+@pytest.mark.parametrize("fused_case", ["adaptive", "noenh"], indirect=True)
+def test_dt_reads_one_row_past_each_brick(fused_case, host_kernels):
+    """C3: the D^T pass over 2- and 4-row bricks reads exactly one row of
+    weighted stress past each side of the brick, and both rows matter on
+    this fixture: a halo of 0 is wrong, and TAU_HALO covers the reach.
+    (A T5 partner two rows up, v + 2, comes only from an even v, whose
+    block partner v + 1 lies in the same even-aligned brick: halo 1 is
+    enough, and no fixture can make it fail.)"""
+    c, s = fused_case, fused_case["sys"]
+    enh = c["case"]["cfg"].use_enhanced_gradients
+    apply_A, embed_tree, _ = fa.make_fused_operator(c["frame"], c["canons"], s["active"],
+                                                    s["rpl"], c["case"]["dx"], enh)
+    g = torch.Generator().manual_seed(5)
+    u = embed_tree({k: torch.randn(m.shape, generator=g) * m for k, m in s["active"].items()})
+    args = apply_A.level_args(u)
+    needed = [False, False]
+    for l, meta in enumerate(apply_A.metas):
+        for brick in (2, 4):
+            got = _reach_past_bricks(host_kernels, args[l], meta, enh, brick, (c["kind"], l))
+            needed = [a or b for a, b in zip(needed, got)]
+    assert needed == [True, True], needed
+
+
+@pytest.fixture(scope="module")
+def edge_frame():
+    """beam-32 (2 levels) on crop windows cut to the occupied boxes with no
+    margin: level 0's window is (0, 24) x (14, 28) x (8, 24), on the domain
+    edge at x = 0 and against the fluid on every other side."""
+    state = scenes.beam(n=32, device="cpu")
+    lv, _ = solver.probe_topology(state, SolverConfig(octree_levels=3), device="cpu")
+    cfg = SolverConfig(octree_levels=lv, apply_impl="cuda")
+    whole = solver.build_system(state, 1.0 / 24.0, cfg, device="cpu")
+    raw = [N(b) for b in octree.occupied_bboxes(whole.labels)]
+    windows = solver._tight_windows(raw, whole.res_per_level, margin=0)
+    sys_ = solver.build_system(state, 1.0 / 24.0, cfg, device="cpu", bboxes=windows,
+                               pad_levels=lv)
+    g = torch.Generator().manual_seed(6)
+    u_log = {k: torch.randn(m.shape, generator=g) * m for k, m in whole.active.items()}
+    return dict(whole=whole, sys=sys_, windows=windows, u_log=u_log)
+
+
+def test_window_without_margin_matches_v1(edge_frame, host_kernels):
+    """C3: the canonical apply on windows with no margin, one on the domain
+    edge, equals the whole-array v1 operator (3e-5 * max per level and
+    axis; the port's v1 is held to JAX in tests/test_torch_solve.py), and
+    the host build of the kernels equals the plain versions there, with the
+    reach checks of the bricks."""
+    e = edge_frame
+    sys_, whole, u_log = e["sys"], e["whole"], e["u_log"]
+    assert e["windows"][0] == ((0, 24), (14, 28), (8, 24)), e["windows"]
+    assert len(sys_.canons) == 2 and all(c.win != c.res for c in sys_.canons)
+    want = whole.apply_v1(u_log)
+    got = sys_.crop_tree(sys_.apply_A(sys_.embed_tree(u_log)))
+    for k in want:
+        scale = max(float(want[k].abs().max()), 1e-30)
+        assert float((got[k] - want[k]).abs().max()) <= 3e-5 * scale, k
+    u = sys_.embed_tree(u_log)
+    args, metas = sys_.apply_A.level_args(u), sys_.apply_A.metas
+    windows = [[fa.embed(torch.ones(face_shape(sys_.res_per_level[l], f), dtype=torch.bool),
+                         sys_.canons[l], False) for f in range(3)] for l in range(len(metas))]
+    _host_matches_plain(host_kernels, args, metas, sys_.canons, True, windows, "edge")
+    for l, meta in enumerate(metas):
+        _reach_past_bricks(host_kernels, args[l], meta, True, 4, ("edge", l))
 
 
 @pytest.mark.parametrize("f", [0, 1, 2])

@@ -1,5 +1,6 @@
-"""The port's per-level kernels on a CUDA card (tau_level, dt_level) and its
-probe kernels (banded_apply, stream_floor) against their plain versions, a
+"""The port's per-level kernels on a CUDA card (tau_level, dt_level), the
+all-level D^T kernel (fused_dt) and its probe kernels (banded_apply,
+stream_floor) against their plain versions, a
 routed solve on the card against the same solve on the CPU, and make_solver's
 cached topology on the card against fresh solves.
 
@@ -9,16 +10,19 @@ card and no JAX; there the suite's conftest (which sets JAX up) is left out:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Without a card every test skips.  The inputs are the port's own
-buckling-32 frame; routes are forced per level (``fused_apply.route_canons``
+buckling-32 frame, and beam-48 on make_solver's crop windows, whose boxes
+the D^T tiles divide on no axis; routes are forced per level (``fused_apply.route_canons``
 and ``make_fused_operator(modes=)``, or ``fused_apply.route_budget``
 patched for a whole solve).  Bar: 3e-5 * max|plain| per level, brick and
 output (float32, sums in another order), as in chip_smoke.py.
 """
 
+import dataclasses
+import re
+from pathlib import Path
+
 import pytest
 import torch
-
-import dataclasses
 
 from adaptiveviscositysolver_tpu_torch import scenes, solver
 from adaptiveviscositysolver_tpu_torch.config import SolverConfig
@@ -77,17 +81,89 @@ def test_tau_level_matches_plain_on_card(card_frame, route):
             _close(got, fa.plain_tau_level(args, meta, True, t, _tau(meta, t)), (route, l, t))
 
 
+def _dt_tile():
+    """The D^T kernels' tile extents (csrc/dt_tile.cuh's defaults)."""
+    src = (Path(fa.__file__).resolve().parent.parent / "csrc" / "dt_tile.cuh").read_text()
+    return tuple(int(re.search(rf"#define AVS_DT_T{ax} (\d+)", src).group(1)) for ax in "XYZ")
+
+
+@pytest.fixture(scope="module")
+def cropped_frame():
+    """beam-48 through make_solver's probe and crop windows (2 levels): every
+    level's box has a tile edge inside it on every axis."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    state = scenes.beam(n=48, device="cuda")
+    lv, windows = solver.probe_topology(state, SolverConfig(octree_levels=3), device="cuda")
+    sys_ = solver.build_system(state, DT, SolverConfig(octree_levels=lv), device="cuda",
+                               bboxes=windows, pad_levels=3)
+    tile = _dt_tile()
+    assert lv == 2 and all(c.shape[d] % tile[d] for c in sys_.canons for d in range(3)), \
+        [c.shape for c in sys_.canons]
+    g = torch.Generator(device="cpu").manual_seed(4)
+    u_log = {k: torch.randn(m.shape, generator=g).to("cuda") * m for k, m in sys_.active.items()}
+    return sys_, u_log, state.dx
+
+
+def _nan_outputs(meta):
+    return {n: torch.full(meta.shape, float("nan"), device="cuda")
+            for n in fa._dt_output_names(meta)}
+
+
+def _out_masked(got, args, meta, what):
+    """out is exactly 0 off the FLUID faces (pads included)."""
+    for f in range(3):
+        fluid = fa._code(args, f"vk{f}", meta.has_parent) == 0
+        assert not bool(got[f"out{f}"][~fluid].any()), (what, f)
+
+
+def _level_routes(frame, route):
+    if route in ROUTES:
+        return _routed(frame, route)
+    # the cropped frame: each level whole, and in 6-row bricks (tile edges
+    # inside every brick)
+    sys_, u_log, _ = frame
+    args = sys_.apply_A.level_args(sys_.embed_tree(u_log))
+    return [(l, args[l], sys_.apply_A.metas[l], dataclasses.replace(c, brick=brick))
+            for l, c in enumerate(sys_.canons) for brick in (None, 6)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", sorted(ROUTES))
-def test_dt_level_matches_plain_on_card(card_frame, route):
-    for l, args, meta, canon in _routed(card_frame, route):
-        got, want = fa.dt_outputs(meta, "cuda"), fa.dt_outputs(meta, "cuda")
+@pytest.mark.parametrize("route", sorted(ROUTES) + ["cropped"])
+def test_dt_level_matches_plain_on_card(card_frame, cropped_frame, route):
+    """dt_level against plain_dt_level on every x-row range, outputs
+    prefilled with NaN (every element of the rows is written), out exactly
+    0 off the FLUID faces (pads included)."""
+    frame = cropped_frame if route == "cropped" else card_frame
+    for l, args, meta, canon in _level_routes(frame, route):
+        got, want = _nan_outputs(meta), fa.dt_outputs(meta, "cuda")
         for rows in canon.row_ranges():
             t = fa.tau_rows(rows, meta.shape[0])
             tau = fa.plain_tau_level(args, meta, True, t, _tau(meta, t))
+            before = fa.launch_counts["dt_level"]
             fa.dt_level(args, tau, t[0], meta, True, rows, got)
+            assert fa.launch_counts["dt_level"] == before + 1
             fa.plain_dt_level(args, tau, t[0], meta, True, rows, want)
-        _close(got, want, (route, l))
+        _close(got, want, (route, l, canon.brick))
+        _out_masked(got, args, meta, (route, l, canon.brick))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["buckling-32", "cropped"])
+def test_fused_dt_matches_plain_on_card(card_frame, cropped_frame, frame):
+    """fused_dt over every level in one launch against _plain_dt on the same
+    weighted stresses, outputs prefilled with NaN."""
+    sys_, u_log, dx = cropped_frame if frame == "cropped" else card_frame
+    apply_A = sys_.apply_A
+    args = apply_A.level_args(sys_.embed_tree(u_log))
+    metas = apply_A.metas
+    taus = fa._plain_tau(args, metas, True)
+    before = fa.launch_counts["fused_dt"]
+    got = fa.fused_dt(args, taus, metas, True, out=[_nan_outputs(m) for m in metas])
+    assert fa.launch_counts["fused_dt"] == before + 1
+    for l, (g, w) in enumerate(zip(got, fa._plain_dt(args, taus, metas, True))):
+        _close(g, w, (frame, l))
+        _out_masked(g, args[l], metas[l], (frame, l))
 
 
 @pytest.mark.gpu

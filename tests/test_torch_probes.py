@@ -217,3 +217,13 @@ def test_probe_tools_refuse_a_missing_card(monkeypatch):
         calibrate_bandwidth.run(2, 1, shape=(2, 2, 4), device="cuda")
     with pytest.raises(RuntimeError):
         profile_levels.run(16, 1, device="cuda")
+
+
+def test_time_kernels_needs_a_card(monkeypatch):
+    """tools.time_kernels times the card only: without one it exits before
+    building anything, never falling back to the plain versions."""
+    from adaptiveviscositysolver_tpu_torch.tools import time_kernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        time_kernels.main(["96"])
