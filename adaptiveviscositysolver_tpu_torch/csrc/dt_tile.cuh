@@ -40,7 +40,8 @@
 //   bits 22-27  pk_f(p) (OUTSIDE on a level without a parent)
 //
 // The functions are __host__ __device__; the block routine with its
-// cp.async staging (device only) is at the end, under __CUDACC__.
+// cp.async staging and the kernels' shared-memory setup (device only) are
+// at the end, under __CUDACC__.
 
 #pragma once
 
@@ -353,6 +354,26 @@ __device__ __forceinline__ void dt_tile_block(const AvsLevel& L, const int o[3],
     tile_sample(o, k, v);
     if (in_launch(L, v)) dt_tile_point(L, T, v, enhanced);
   }
+}
+
+// Lets D^T kernel k take kDtSmemBytes of dynamic shared memory (above the
+// 48 KB default).  The attribute holds for the current device only, so it
+// is set before every launch (a host call, no device work): a second card
+// gets it too, and an error is not kept past the call that met it.
+template <typename K>
+cudaError_t dt_prepare(K k) {
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kDtSmemBytes);
+}
+
+// Resident blocks per SM of D^T kernel k at `threads` threads, its shared
+// memory and register use (-1 on an error).
+template <typename K>
+int dt_blocks_per_sm(K k, int threads) {
+  int n = 0;
+  if (dt_prepare(k) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, threads, kDtSmemBytes) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 #endif  // __CUDACC__

@@ -50,14 +50,6 @@ avs_dt_kernel(const __grid_constant__ AvsFrame F) {
   avs::dt_tile_block(F.lv[l], o, F.enhanced != 0, smem);
 }
 
-// Lets the D^T kernel take kDtSmemBytes of dynamic shared memory (above
-// the 48 KB default), once per process.
-cudaError_t dt_prepare() {
-  static const cudaError_t e = cudaFuncSetAttribute(
-      avs_dt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, avs::kDtSmemBytes);
-  return e;
-}
-
 }  // namespace
 
 extern "C" {
@@ -81,7 +73,7 @@ int avs_dt_launch(const void* frame, void* stream) {
   const AvsFrame& F = *(const AvsFrame*)frame;
   const long long blocks = avs::frame_tiles(F);
   if (blocks <= 0) return 0;
-  const cudaError_t e = dt_prepare();
+  const cudaError_t e = avs::dt_prepare(avs_dt_kernel);
   if (e != cudaSuccess) return (int)e;
   avs_dt_kernel<<<(unsigned)blocks, kThreads, avs::kDtSmemBytes, (cudaStream_t)stream>>>(F);
   return (int)cudaGetLastError();
@@ -90,15 +82,8 @@ int avs_dt_launch(const void* frame, void* stream) {
 // dynamic shared memory of one D^T block
 long long avs_dt_smem_bytes() { return avs::kDtSmemBytes; }
 
-// resident D^T blocks per SM at this shared memory and register use (-1 on
-// an error)
-int avs_dt_blocks_per_sm() {
-  int n = 0;
-  if (dt_prepare() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, avs_dt_kernel, kThreads,
-                                                    avs::kDtSmemBytes) != cudaSuccess)
-    return -1;
-  return n;
-}
+// resident D^T blocks per SM at its shared memory and register use (-1
+// on an error)
+int avs_dt_blocks_per_sm() { return avs::dt_blocks_per_sm(avs_dt_kernel, kThreads); }
 
 }  // extern "C"

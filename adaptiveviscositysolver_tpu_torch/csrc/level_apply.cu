@@ -64,14 +64,6 @@ unsigned blocks_for(long long total) {
   return (unsigned)((total + kThreads - 1) / kThreads);
 }
 
-// Lets the D^T kernel take kDtSmemBytes of dynamic shared memory (above
-// the 48 KB default), once per process.
-cudaError_t dt_prepare() {
-  static const cudaError_t e = cudaFuncSetAttribute(
-      avs_dt_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, avs::kDtSmemBytes);
-  return e;
-}
-
 }  // namespace
 
 extern "C" {
@@ -92,7 +84,7 @@ int avs_tau_level_launch(const void* level, long long total, int enhanced, void*
 int avs_dt_level_launch(const void* level, long long total, int enhanced, void* stream) {
   if (total <= 0) return 0;
   const AvsLevel& L = *(const AvsLevel*)level;
-  const cudaError_t e = dt_prepare();
+  const cudaError_t e = avs::dt_prepare(avs_dt_level_kernel);
   if (e != cudaSuccess) return (int)e;
   avs_dt_level_kernel<<<(unsigned)avs::tile_count(L), kThreads, avs::kDtSmemBytes,
                         (cudaStream_t)stream>>>(L, enhanced);
@@ -102,15 +94,8 @@ int avs_dt_level_launch(const void* level, long long total, int enhanced, void* 
 // dynamic shared memory of one D^T block
 long long avs_dt_smem_bytes() { return avs::kDtSmemBytes; }
 
-// resident D^T blocks per SM at this shared memory and register use (-1 on
-// an error)
-int avs_dt_blocks_per_sm() {
-  int n = 0;
-  if (dt_prepare() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, avs_dt_level_kernel, kThreads,
-                                                    avs::kDtSmemBytes) != cudaSuccess)
-    return -1;
-  return n;
-}
+// resident D^T blocks per SM at its shared memory and register use (-1
+// on an error)
+int avs_dt_blocks_per_sm() { return avs::dt_blocks_per_sm(avs_dt_level_kernel, kThreads); }
 
 }  // extern "C"

@@ -849,11 +849,16 @@ def dt_level(args: Dict[str, torch.Tensor], tau: Dict[str, torch.Tensor], tau_x0
     """D^T pass of one level on x rows ``rows``: writes those rows of
     ``out`` (the level's ``out``/``zp``/``zc``, box-shaped), reading the
     weighted stresses ``tau``, whose first row is ``tau_x0``; they must
-    hold :func:`tau_rows` of ``rows``.
+    hold :func:`tau_rows` of ``rows``.  Both bounds of ``rows`` are even:
+    the kernel's tiles start on ``rows[0]`` and rest on even origins, and
+    an even v's T5 block partner reads two rows past v, so a range ending
+    on an odd row would read past :func:`tau_rows`.
 
     CUDA tensors: one launch of the level D^T kernel.  CPU tensors:
     :func:`dt_plain`'s rows."""
     _check_rows(rows, meta)
+    if rows[0] % 2 or rows[1] % 2:
+        raise ValueError(f"D^T runs on x rows with even bounds, got {rows}")
     dev = _device_of([args])
     nx = tau["wte0"].shape[0]
     t0, t1 = tau_rows(rows, meta.shape[0])

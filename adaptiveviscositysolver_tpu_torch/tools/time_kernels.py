@@ -1,8 +1,8 @@
 """Each matvec kernel's time per apply at the main path's shapes.
 
-    python -m adaptiveviscositysolver_tpu_torch.tools.time_kernels [n ...] [--reps R]
+    python -m adaptiveviscositysolver_tpu_torch.tools.time_kernels
 
-On ``scenes.buckling(n)`` (default 96 192 256) with
+On ``scenes.buckling(n)`` for n in 96, 192 and 256 (the main path's scenes), with
 ``SolverConfig(octree_levels=4)``, the system make_solver builds on a first
 frame (trimmed levels, the probe's crop windows, the card's routes) and a
 seeded random u on the fluid faces: ``fused_tau`` / ``fused_dt`` over the
@@ -10,7 +10,8 @@ fused group, and ``tau_level`` / ``dt_level`` summed over every x-row range
 of the split and bricked levels, in milliseconds per apply from CUDA events
 around each launch, back to back as in the CG loop (L2 warm; the launches
 are queued behind a spin of the device, so the events time the device, not
-the host's Python between launches).  Prints one JSON line.
+the host's Python between launches), over REPS applies.  Prints one JSON
+line.
 
 The timers use only wrappers the package has had since the level kernels
 came in, so one run on the card can time two checkouts: run this file by its path
@@ -19,7 +20,6 @@ with the other checkout first on ``PYTHONPATH``.
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 from typing import Dict, List
@@ -32,6 +32,8 @@ from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
 from adaptiveviscositysolver_tpu_torch.tools import SPIN_CYCLES_PER_CALL
 
 DT = 1.0 / 24.0
+SCENES = (96, 192, 256)
+REPS = 20
 
 
 def time_level_pair(args, meta, canon, enh, reps, plain=False):
@@ -114,15 +116,11 @@ def time_scene(n: int, reps: int, device="cuda") -> Dict[str, object]:
     return res
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("n", type=int, nargs="*", default=[96, 192, 256])
-    ap.add_argument("--reps", type=int, default=20)
-    a = ap.parse_args(argv)
+def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA device; it times the card")
-    out = {"device": torch.cuda.get_device_name(0), "reps": a.reps,
-           "ms_per_apply": {str(n): time_scene(n, a.reps) for n in a.n}}
+    out = {"device": torch.cuda.get_device_name(0), "reps": REPS,
+           "ms_per_apply": {str(n): time_scene(n, REPS) for n in SCENES}}
     print(json.dumps(out), flush=True)
 
 

@@ -56,7 +56,8 @@ Phases (one line each, elapsed seconds first):
   7 beam     -- scenes.beam(64) through make_solver, the scene that fills ~7 %
                 of its domain: the JAX package's counts (BENCH_r04.json: 262
                 +- 2 iterations, 22064 / 32336 DOFs, 3 levels), residual <=
-                1e-4, the kernels' path; its routes and windows
+                1e-4, the kernels' path; its routes and windows; three
+                cached frames (a host-bound frame: one reading is noise)
   8 policy   -- make_solver's host policy on test_recompile's ball at 96^3 (5
                 iterations a frame): 7 translated frames through an async and
                 a sync solver (at most 3 cached topologies each, the same
@@ -882,13 +883,18 @@ def main():
     canons_b = fa.level_canons([tuple(64 >> l for _ in range(3)) for l in range(lv_b)], win_b)
     modes_b = fa.level_modes(canons_b, fa.route_budget(dev))
     sb = rb.stats
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    rb2 = solve_b(beam, dt)
-    stop.record()
-    torch.cuda.synchronize()
-    beam_warm_ms = start.elapsed_time(stop)
-    log("beam", f"beam-64 cold frame {beam_cold_s:.3f} s, cached frame {beam_warm_ms:.2f} ms: "
+    beam_warm = []
+    for _ in range(3):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rb2 = solve_b(beam, dt)
+        stop.record()
+        torch.cuda.synchronize()
+        beam_warm.append(start.elapsed_time(stop))
+        assert rb2.stats.iterations == sb.iterations
+    beam_warm_ms = statistics.median(beam_warm)
+    log("beam", f"beam-64 cold frame {beam_cold_s:.3f} s, cached frames "
+                f"{['%.2f' % w for w in beam_warm]} ms, median {beam_warm_ms:.2f} ms: "
                 f"{sb} | launches {launches_b} | routes {modes_b}, windows {win_b}, canonical "
                 f"boxes {[c.shape for c in canons_b]} | {smi}")
     assert sb.solve_path == "cuda", sb.solve_path
@@ -897,7 +903,6 @@ def main():
     assert sb.regular_dofs == EXPECT_BEAM["regular_dofs"], sb.regular_dofs
     assert abs(sb.iterations - EXPECT_BEAM["iterations"]) <= 2, sb.iterations
     assert sb.residual <= 1e-4, sb.residual
-    assert rb2.stats.iterations == sb.iterations
     check_launches(launches_b, sb.applies, canons_b, modes_b, "beam")
     for a, v in enumerate(rb.velocity):
         assert tuple(v.shape) == tuple(64 + (1 if d == a else 0) for d in range(3)), v.shape
@@ -1063,7 +1068,8 @@ def main():
         "beam64": {"cg_iterations": sb.iterations, "octree_dofs": sb.octree_dofs,
                    "regular_dofs": sb.regular_dofs, "levels": len(sb.active_cells),
                    "residual": sb.residual, "routes": [str(m) for m in modes_b],
-                   "windows": win_b, "cold_frame_s": beam_cold_s, "warm_frame_ms": beam_warm_ms},
+                   "windows": win_b, "cold_frame_s": beam_cold_s, "warm_frame_ms": beam_warm_ms,
+                   "warm_frames_ms": beam_warm},
         "policy": {"programs": [info_a["programs"], info_s["programs"]],
                    "async_vs_sync_rel": ball_rel, "drain_volumes": [peak] + vols},
         "probes": probe_rows,

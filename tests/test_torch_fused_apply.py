@@ -523,6 +523,16 @@ def test_wrappers_take_the_plain_version_only_on_cpu():
         fa.fused_tau([args], [meta], True)
 
 
+@pytest.mark.parametrize("rows", [(1, 4), (0, 3), (1, 3)])
+def test_dt_level_refuses_odd_row_bounds(rows):
+    """dt_level runs on x rows with even bounds only, on any device: its
+    tiles rest on even origins, and TAU_HALO = 1 covers the reach of a
+    range with even bounds only (test_dt_reads_one_row_past_each_brick)."""
+    meta = fa.LevelMeta(0, (4, 4, 4), 0.5, False, False, (3, 3, 3))
+    with pytest.raises(ValueError, match="even bounds"):
+        fa.dt_level({}, {}, 0, meta, True, rows, {})
+
+
 def test_kernel_bytes_count_the_logical_window():
     """The byte bound counts each level's window (cells + closing face
     row), whatever the canonical pad: one uncropped 4^3 level by hand, a

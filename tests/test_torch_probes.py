@@ -226,4 +226,4 @@ def test_time_kernels_needs_a_card(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
-        time_kernels.main(["96"])
+        time_kernels.main()
