@@ -24,10 +24,11 @@
 //
 // Bound: device-memory bytes, as for fused_apply.cu (the halo rows are
 // recomputed per brick; that is this design's cost, not the bound's).  The
-// tau kernel runs fused_apply.cuh's tau_point, one thread per sample
-// (sample_of); the D^T kernel runs dt_tile.cuh's tiled routine, one block
-// per tile of the launch's rows.  wte/wtc are addressed from the scratch's
-// own first row (tau_lin), so the same code runs a whole level or a brick.
+// kernels run the tiled routines of tau_tile.cuh and dt_tile.cuh, one block
+// per tile of the launch's rows (tile_origin; the rows' first bound is
+// even, so tile origins keep parity).  wte/wtc are addressed from the
+// scratch's own first row (tau_lin), so the same code runs a whole level
+// or a brick.
 //
 // The level descriptor is passed by value as a __grid_constant__ kernel
 // parameter: no descriptor copy to the device per launch.
@@ -38,30 +39,41 @@
 #include <cuda_runtime.h>
 
 #include "dt_tile.cuh"
+#include "tau_tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
-avs_tau_level_kernel(const __grid_constant__ AvsLevel L, long long total, int enhanced) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  int p[3];
-  avs::sample_of(L, t, p);
-  avs::tau_point<false>(L, p, enhanced != 0);
+// held to 64 registers: 4 blocks per SM at the tau block's shared memory
+template <bool kEnhanced>
+__global__ void __launch_bounds__(kThreads, 4)
+avs_tau_level_kernel(const __grid_constant__ AvsLevel L) {
+  extern __shared__ float smem[];
+  int o[3];
+  avs::tile_origin<avs::TauShape>(L, blockIdx.x, o);
+  avs::tau_tile_block<kEnhanced>(L, o, smem, threadIdx.x, blockDim.x);
 }
 
 __global__ void __launch_bounds__(kThreads)
 avs_dt_level_kernel(const __grid_constant__ AvsLevel L, int enhanced) {
   extern __shared__ float smem[];
   int o[3];
-  avs::tile_origin(L, blockIdx.x, o);
-  avs::dt_tile_block(L, o, enhanced != 0, smem);
+  avs::tile_origin<avs::DtShape>(L, blockIdx.x, o);
+  avs::dt_tile_block(L, o, enhanced != 0, smem, threadIdx.x, blockDim.x);
 }
 
-unsigned blocks_for(long long total) {
-  return (unsigned)((total + kThreads - 1) / kThreads);
+// One launch of kernel k over every tile of shape S of the level's rows,
+// with `smem` bytes of dynamic shared memory (args: the kernel's arguments
+// after the level).
+template <class S, typename K, typename... Args>
+int launch_level(K k, const void* level, long long total, int smem, void* stream, Args... args) {
+  if (total <= 0) return 0;
+  const AvsLevel& L = *(const AvsLevel*)level;
+  const cudaError_t e = avs::smem_prepare(k, smem);
+  if (e != cudaSuccess) return (int)e;
+  k<<<(unsigned)avs::tile_count<S>(L), kThreads, smem, (cudaStream_t)stream>>>(L, args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -72,30 +84,28 @@ extern "C" {
 long long avs_level_bytes() { return (long long)sizeof(AvsLevel); }
 
 // level: HOST pointer to one AvsLevel (copied into the launch's parameters);
-// total: threads, one per sample of the rows [row0, row0 + total / (cy*cz))
-int avs_tau_level_launch(const void* level, long long total, int enhanced, void* stream) {
-  if (total <= 0) return 0;
-  avs_tau_level_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-      *(const AvsLevel*)level, total, enhanced);
-  return (int)cudaGetLastError();
-}
-
 // total: the launch's samples (its rows' cy*cz each, as in the descriptor)
-int avs_dt_level_launch(const void* level, long long total, int enhanced, void* stream) {
-  if (total <= 0) return 0;
-  const AvsLevel& L = *(const AvsLevel*)level;
-  const cudaError_t e = avs::dt_prepare(avs_dt_level_kernel);
-  if (e != cudaSuccess) return (int)e;
-  avs_dt_level_kernel<<<(unsigned)avs::tile_count(L), kThreads, avs::kDtSmemBytes,
-                        (cudaStream_t)stream>>>(L, enhanced);
-  return (int)cudaGetLastError();
+int avs_tau_level_launch(const void* level, long long total, int enhanced, void* stream) {
+  return enhanced ? launch_level<avs::TauShape>(avs_tau_level_kernel<true>, level, total,
+                                                avs::kTauSmemBytes, stream)
+                  : launch_level<avs::TauShape>(avs_tau_level_kernel<false>, level, total,
+                                                avs::kTauSmemBytes, stream);
 }
 
-// dynamic shared memory of one D^T block
-long long avs_dt_smem_bytes() { return avs::kDtSmemBytes; }
+int avs_dt_level_launch(const void* level, long long total, int enhanced, void* stream) {
+  return launch_level<avs::DtShape>(avs_dt_level_kernel, level, total, avs::kDtSmemBytes,
+                                    stream, enhanced);
+}
 
-// resident D^T blocks per SM at its shared memory and register use (-1
-// on an error)
-int avs_dt_blocks_per_sm() { return avs::dt_blocks_per_sm(avs_dt_level_kernel, kThreads); }
+// dynamic shared memory of one block, and resident blocks per SM at that
+// and the kernel's register use (-1 on an error; tau: the enhanced build)
+long long avs_tau_smem_bytes() { return avs::kTauSmemBytes; }
+int avs_tau_blocks_per_sm() {
+  return avs::blocks_per_sm(avs_tau_level_kernel<true>, kThreads, avs::kTauSmemBytes);
+}
+long long avs_dt_smem_bytes() { return avs::kDtSmemBytes; }
+int avs_dt_blocks_per_sm() {
+  return avs::blocks_per_sm(avs_dt_level_kernel, kThreads, avs::kDtSmemBytes);
+}
 
 }  // extern "C"

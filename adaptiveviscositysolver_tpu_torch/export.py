@@ -103,6 +103,16 @@ def export_sparse_system(
     """Assemble (A_csr, rhs, vel_index_grids, n_dofs) on the host, in
     float64: DOFs numbered level by level, axis by axis, in row-major
     order over the FLUID faces (the JAX package's numbering)."""
+    return _assemble(blocks, mass, vel_kinds, guess, res_per_level)[:4]
+
+
+def _assemble(blocks, mass, vel_kinds, guess, res_per_level):
+    """:func:`export_sparse_system`'s assembly, with the stacked gradient
+    rows it forms ``A = M + D^T W D`` from: (A, rhs, vel_idx, n, D, w).
+    ``D`` (scipy CSR, n columns) has one row per sample of each block's
+    weight grid, the blocks in order, row-major within a block; ``w`` holds
+    the weights of those rows.  ``diag(w) @ D @ x`` is the weighted
+    stresses of the DOF vector x, block by block."""
     import scipy.sparse as sp
 
     levels = len(res_per_level)
@@ -128,15 +138,14 @@ def export_sparse_system(
                     rows.append(np.flatnonzero(sel))
                     cols.append(cg[sel])
                     vals.append(coeff[sel])
-        if not rows:
-            continue
         D = sp.coo_matrix(
-            (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+            (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))) if rows
+            else (np.zeros(0), (np.zeros(0, np.int64), np.zeros(0, np.int64))),
             shape=(n_rows, n),
         ).tocsr()
         Ds.append(D)
         ws.append(w)
-        if b.boundary is not None:
+        if rows and b.boundary is not None:
             bvec = _host(b.boundary).astype(np.float64).reshape(-1)
             rhs -= D.T @ (w * bvec)
 
@@ -148,8 +157,9 @@ def export_sparse_system(
             mdiag[idx[sel]] = _host(mass[(l, a)]).astype(np.float64)[sel]
             rhs[idx[sel]] += mdiag[idx[sel]] * _host(guess[(l, a)]).astype(np.float64)[sel]
     A = sp.diags(mdiag).tocsr()
-    if Ds:
+    D = sp.vstack(Ds).tocsr() if Ds else sp.csr_matrix((0, n))
+    w = np.concatenate(ws) if ws else np.zeros(0)
+    if D.nnz:
         # every block's D^T W D in one product over the stacked gradient rows
-        D = sp.vstack(Ds).tocsr()
-        A = A + D.T @ sp.diags(np.concatenate(ws)) @ D
-    return A.tocsr(), rhs, vel_idx, n
+        A = A + D.T @ sp.diags(w) @ D
+    return A.tocsr(), rhs, vel_idx, n, D, w

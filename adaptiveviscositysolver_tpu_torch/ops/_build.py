@@ -27,8 +27,9 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
                            "-Xptxas", "-v"]
 
 # library stem -> (main source, headers it includes)
-SOURCES = {"fused_apply": ("fused_apply.cu", ("fused_apply.cuh", "dt_tile.cuh")),
-           "level_apply": ("level_apply.cu", ("fused_apply.cuh", "dt_tile.cuh")),
+_MATVEC_HEADERS = ("fused_apply.cuh", "tile.cuh", "tau_tile.cuh", "dt_tile.cuh")
+SOURCES = {"fused_apply": ("fused_apply.cu", _MATVEC_HEADERS),
+           "level_apply": ("level_apply.cu", _MATVEC_HEADERS),
            "probe_kernels": ("probe_kernels.cu", ("probe_kernels.cuh",))}
 
 _loaded: Dict[str, ctypes.CDLL] = {}

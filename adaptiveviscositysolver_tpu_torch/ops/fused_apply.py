@@ -17,11 +17,12 @@ Kernels (``csrc/fused_apply.cu``), replacing the Pallas TPU kernels
 ``_make_merged_kernel`` (:1447, levels >= 1), both with body
 ``_make_fused_body`` (:1044):
 
-* ``fused_tau`` -- one launch for a group of levels, one thread per stress
-  sample: the 3 edge and 3 center weighted stresses ``wte``/``wtc``.
-* ``fused_dt``  -- one launch for the same group, one thread per face
-  sample: ``out = [FLUID] * (D^T wtau + m u)``, ``zp`` (to level l+1) and
-  ``zc`` (to level l-1), unmasked.
+* ``fused_tau`` -- one launch for a group of levels, one block per tile of
+  stress samples (``csrc/tau_tile.cuh``): the 3 edge and 3 center weighted
+  stresses ``wte``/``wtc``.
+* ``fused_dt``  -- one launch for the same group, one block per tile of face
+  samples (``csrc/dt_tile.cuh``): ``out = [FLUID] * (D^T wtau + m u)``,
+  ``zp`` (to level l+1) and ``zc`` (to level l-1), unmasked.
 
 and (``csrc/level_apply.cu``), replacing ``_make_tau_kernel`` (:846),
 ``_make_dt_kernel`` (:913) and the bricked branch of ``_level_kernel``
@@ -584,7 +585,7 @@ _PTR_FIELDS = (["u0", "u1", "u2", "up0", "up1", "up2", "cs0", "cs1", "cs2",
                 "kp0", "kp1", "kp2", "kp3", "we0", "we1", "we2", "wc", "m0", "m1", "m2",
                 "wte0", "wte1", "wte2", "wtc0", "wtc1", "wtc2",
                 "out0", "out1", "out2", "zp0", "zp1", "zp2", "zc0", "zc1", "zc2"])
-_LEVEL_WORDS = 46
+_LEVEL_WORDS = 45
 MAX_LEVELS = 8
 
 
@@ -621,28 +622,29 @@ def _check(levels, metas, names_fn) -> None:
 
 
 @functools.lru_cache(maxsize=1024)
-def _static_words(meta: LevelMeta, start: int, rows: Optional[Tuple[int, int]], tau_x0: int,
+def _static_words(meta: LevelMeta, rows: Optional[Tuple[int, int]], tau_x0: int,
                   tau_nx: Optional[int]) -> np.ndarray:
     """The words of an AvsLevel that do not depend on the data (the pointer
     slots zero): one array per topology and launch, built once."""
     words = np.zeros(_LEVEL_WORDS, np.int64)
     cx, cy, cz = meta.shape
     r0, r1 = (0, cx) if rows is None else rows
-    words[35:42] = [cx, cy, cz, start, (r1 - r0) * cy * cz, int(meta.has_parent),
-                    int(meta.has_child)]
-    words[42] = np.array([1.0 / meta.dxw], np.float64).view(np.int64)[0]
-    words[43:46] = [r0, tau_x0, cx if tau_nx is None else tau_nx]
+    words[35:41] = [cx, cy, cz, (r1 - r0) * cy * cz, int(meta.has_parent), int(meta.has_child)]
+    words[41] = np.array([1.0 / meta.dxw], np.float64).view(np.int64)[0]
+    words[42:45] = [r0, tau_x0, cx if tau_nx is None else tau_nx]
     words.flags.writeable = False
     return words
 
 
-def _level_words(args, meta: LevelMeta, start: int = 0, rows: Optional[Tuple[int, int]] = None,
+_COUNT_WORD = 38   # AvsLevel.count: the launch's samples
+
+
+def _level_words(args, meta: LevelMeta, rows: Optional[Tuple[int, int]] = None,
                  tau_x0: int = 0, tau_nx: Optional[int] = None) -> np.ndarray:
-    """int64 words of csrc's AvsLevel: the threads of x rows ``rows`` (all
-    by default) from thread ``start`` on; wte/wtc hold rows from
-    ``tau_x0`` (``tau_nx`` of them, all by default)."""
-    words = _static_words(meta, start, None if rows is None else tuple(rows), tau_x0,
-                          tau_nx).copy()
+    """int64 words of csrc's AvsLevel: the samples of x rows ``rows`` (all
+    by default); wte/wtc hold rows from ``tau_x0`` (``tau_nx`` of them,
+    all by default)."""
+    words = _static_words(meta, None if rows is None else tuple(rows), tau_x0, tau_nx).copy()
     for j, name in enumerate(_PTR_FIELDS):
         t = args.get(name)
         if t is not None:
@@ -650,19 +652,17 @@ def _level_words(args, meta: LevelMeta, start: int = 0, rows: Optional[Tuple[int
     return words
 
 
-def _frame(levels, metas, enhanced: bool):
-    """Host descriptor (int64 words of csrc AvsFrame) and total threads."""
-    words = np.zeros(MAX_LEVELS * _LEVEL_WORDS + 3, np.int64)
-    start = 0
+def _frame(levels, metas, enhanced: bool) -> np.ndarray:
+    """Host descriptor: int64 words of csrc's AvsFrame, every level whole."""
+    words = np.zeros(MAX_LEVELS * _LEVEL_WORDS + 2, np.int64)
     for l, (args, meta) in enumerate(zip(levels, metas)):
-        words[l * _LEVEL_WORDS:(l + 1) * _LEVEL_WORDS] = _level_words(args, meta, start)
-        start += int(np.prod(meta.shape))
-    words[-3:] = [len(levels), start, int(enhanced)]
-    return words, start
+        words[l * _LEVEL_WORDS:(l + 1) * _LEVEL_WORDS] = _level_words(args, meta)
+    words[-2:] = [len(levels), int(enhanced)]
+    return words
 
 
-# bytes of kernel parameters a launch takes (the all-level D^T kernel gets
-# its AvsFrame by value)
+# bytes of kernel parameters a launch takes (the all-level kernels get
+# their AvsFrame by value)
 PARAM_LIMIT = 4096
 
 
@@ -670,19 +670,19 @@ PARAM_LIMIT = 4096
 def _library(stem: str) -> ctypes.CDLL:
     """``csrc/<stem>.cu``'s library, built at first use, with the argument
     types of its entry points set and its descriptor layout checked
-    against this module's.  ``fused_apply``: ``avs_tau_launch`` (device
-    descriptor, threads, stream) / ``avs_dt_launch`` (host descriptor,
-    stream); ``level_apply``: ``avs_tau_level_launch`` /
-    ``avs_dt_level_launch`` (host descriptor, threads, enhanced, stream).
-    Both have ``avs_dt_smem_bytes`` (dynamic shared memory of a D^T
-    block) and ``avs_dt_blocks_per_sm`` (its resident blocks per SM)."""
+    against this module's.  ``fused_apply``: ``avs_tau_launch`` /
+    ``avs_dt_launch`` (host descriptor, stream); ``level_apply``:
+    ``avs_tau_level_launch`` / ``avs_dt_level_launch`` (host descriptor,
+    samples, enhanced, stream).  Both have ``avs_{tau,dt}_smem_bytes``
+    (dynamic shared memory of a block) and ``avs_{tau,dt}_blocks_per_sm``
+    (its resident blocks per SM)."""
     from . import _build
 
     lib = _build.load(stem)
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     if stem == "fused_apply":
-        probe, want = lib.avs_frame_bytes, (MAX_LEVELS * _LEVEL_WORDS + 3) * 8
-        entries = {"avs_tau_launch": [vp, ll, vp], "avs_dt_launch": [vp, vp]}
+        probe, want = lib.avs_frame_bytes, (MAX_LEVELS * _LEVEL_WORDS + 2) * 8
+        entries = dict.fromkeys(("avs_tau_launch", "avs_dt_launch"), [vp, vp])
     else:
         probe, want = lib.avs_level_bytes, _LEVEL_WORDS * 8
         entries = dict.fromkeys(("avs_tau_level_launch", "avs_dt_level_launch"),
@@ -696,35 +696,28 @@ def _library(stem: str) -> ctypes.CDLL:
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    lib.avs_dt_smem_bytes.argtypes, lib.avs_dt_smem_bytes.restype = [], ll
-    lib.avs_dt_blocks_per_sm.argtypes, lib.avs_dt_blocks_per_sm.restype = [], ctypes.c_int
+    for k in ("tau", "dt"):
+        smem, blocks = getattr(lib, f"avs_{k}_smem_bytes"), getattr(lib, f"avs_{k}_blocks_per_sm")
+        smem.argtypes, smem.restype = [], ll
+        blocks.argtypes, blocks.restype = [], ctypes.c_int
     return lib
 
 
 def _launch(entry: str, levels, metas, enhanced: bool) -> None:
     lib = _library("fused_apply")
-    words, total = _frame(levels, metas, enhanced)
-    dev = levels[0]["u0"].device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if entry == "avs_dt_launch":
-        # the launch copies the descriptor into the kernel's parameters
-        err = lib.avs_dt_launch(words.ctypes.data, stream)
-    else:
-        # the tau kernel reads it from the device: an asynchronous copy on
-        # the current stream (from pageable memory it returns once the
-        # words are staged, without waiting for the device)
-        desc = torch.from_numpy(words).to(dev, non_blocking=True)
-        err = lib.avs_tau_launch(desc.data_ptr(), total, stream)
+    words = _frame(levels, metas, enhanced)
+    # the launch copies the descriptor into the kernel's parameters: no
+    # device copy, and ``words`` may go once the call returns
+    stream = torch.cuda.current_stream(levels[0]["u0"].device).cuda_stream
+    err = getattr(lib, entry)(words.ctypes.data, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: cudaError {err}")
 
 
 def _launch_level(entry: str, words: np.ndarray, enhanced: bool, dev: torch.device) -> None:
     lib = _library("level_apply")
-    # the launch copies the descriptor into the kernel's parameters: no
-    # device copy, and ``words`` may go once the call returns
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, entry)(words.ctypes.data, int(words[39]), int(enhanced), stream)
+    err = getattr(lib, entry)(words.ctypes.data, int(words[_COUNT_WORD]), int(enhanced), stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: cudaError {err}")
 
@@ -740,6 +733,11 @@ def _check_rows(rows: Tuple[int, int], meta: LevelMeta) -> None:
                          f"{meta.shape[0]} rows")
 
 
+def _check_even(rows: Tuple[int, int], what: str) -> None:
+    if rows[0] % 2 or rows[1] % 2:
+        raise ValueError(f"{what} runs on x rows with even bounds, got {rows}")
+
+
 def _check_tau(tau: Dict[str, torch.Tensor], meta: LevelMeta, rows: int, dev) -> None:
     want = (rows,) + tuple(meta.shape[1:])
     for n in TAU_NAMES:
@@ -753,7 +751,8 @@ def fused_tau(levels: Sequence[Dict[str, torch.Tensor]], metas: Sequence[LevelMe
               enhanced: bool, out: Optional[List[Dict[str, torch.Tensor]]] = None
               ) -> List[Dict[str, torch.Tensor]]:
     """Weighted stresses ``wte0-2``/``wtc0-2`` of every level, into ``out``
-    (per level, six tensors of the box's shape) if given.
+    (per level, six tensors of the box's shape) if given; every element is
+    written.
 
     CUDA tensors: one launch of the tau kernel over all levels.  CPU
     tensors: :func:`tau_plain` per level."""
@@ -826,11 +825,14 @@ def tau_level(args: Dict[str, torch.Tensor], meta: LevelMeta, enhanced: bool,
               rows: Tuple[int, int], tau: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Weighted stresses of one level's x rows ``rows`` = (r0, r1) into
     ``tau`` (``wte0-2``/``wtc0-2``, each of shape (r1 - r0, CY, CZ), first
-    row r0).
+    row r0); every element is written.  Both bounds of ``rows`` are even,
+    as :func:`tau_rows` gives them: the kernel's tiles start on ``rows[0]``
+    and rest on even origins.
 
     CUDA tensors: one launch of the level tau kernel.  CPU tensors:
     :func:`tau_plain`'s rows."""
     _check_rows(rows, meta)
+    _check_even(rows, "tau")
     dev = _device_of([args])
     if dev.type == "cpu":
         return plain_tau_level(args, meta, enhanced, rows, tau)
@@ -857,8 +859,7 @@ def dt_level(args: Dict[str, torch.Tensor], tau: Dict[str, torch.Tensor], tau_x0
     CUDA tensors: one launch of the level D^T kernel.  CPU tensors:
     :func:`dt_plain`'s rows."""
     _check_rows(rows, meta)
-    if rows[0] % 2 or rows[1] % 2:
-        raise ValueError(f"D^T runs on x rows with even bounds, got {rows}")
+    _check_even(rows, "D^T")
     dev = _device_of([args])
     nx = tau["wte0"].shape[0]
     t0, t1 = tau_rows(rows, meta.shape[0])

@@ -10,8 +10,9 @@ fused group, and ``tau_level`` / ``dt_level`` summed over every x-row range
 of the split and bricked levels, in milliseconds per apply from CUDA events
 around each launch, back to back as in the CG loop (L2 warm; the launches
 are queued behind a spin of the device, so the events time the device, not
-the host's Python between launches), over REPS applies.  Prints one JSON
-line.
+the host's Python between launches), over REPS applies; beside each, the
+device-memory bytes its pass must move (``fused_apply.kernel_bytes``, the
+bound's numerator).  Prints one JSON line.
 
 The timers use only wrappers the package has had since the level kernels
 came in, so one run on the card can time two checkouts: run this file by its path
@@ -109,10 +110,12 @@ def time_scene(n: int, reps: int, device="cuda") -> Dict[str, object]:
     if fused:
         res["fused_tau"], res["fused_dt"] = time_fused_levels(
             [args[l] for l in fused], [metas[l] for l in fused], True, reps)
+        res["fused_bytes"] = fa.kernel_bytes([metas[l] for l in fused])
     for l, m in enumerate(sys_.modes):
         if m != "fused":
             res[f"level{l}"] = dict(zip(("tau_level", "dt_level"), time_level_pair(
-                args[l], metas[l], sys_.canons[l], True, reps)))
+                args[l], metas[l], sys_.canons[l], True, reps)),
+                bytes=fa.kernel_bytes([metas[l]]))
     return res
 
 

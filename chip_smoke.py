@@ -10,16 +10,18 @@ Phases (one line each, elapsed seconds first):
   0 device   -- card name and power limit (nvidia-smi), torch version; no
                 CUDA device is a failure, never a CPU run
   1 build    -- nvcc builds csrc/ into build/torch_kernels/, one nvcc per
-                source, all started together (budget 60 s); the D^T kernels'
-                registers, spills and shared memory (ptxas) and resident
-                blocks per SM
+                source, all started together (budget 60 s); the four matvec
+                kernels' registers, spills and shared memory (ptxas) and
+                resident blocks per SM
   2 kernels  -- on buckling-96's real frame data, every kernel against its
                 plain version on the card (3e-5 * max per level and output),
                 and the whole fused apply against its plain version and the
                 whole-array operator; kernel / plain times with CUDA events;
-                the library yardstick: the assembled CSR system (export.py)
-                times A @ x on the card, checked against the apply; each
-                kernel's share of its bound and its time over the CSR call's
+                the library yardsticks: the assembled CSR system (export.py)
+                times A @ x on the card, checked against the apply, and its
+                stacked weighted gradient rows W D times the tau function
+                alone, (W D) @ x; each kernel's share of its bound and its
+                time over its CSR call's (tau kernels: W D, D^T kernels: A)
   2b routes  -- every route on the same frame: split, bricked (>= 3 bricks
                 on level 0) and fused levels mixed, and every level bricked;
                 tau_level / dt_level against their plain versions per level,
@@ -43,8 +45,9 @@ Phases (one line each, elapsed seconds first):
                 2209612 DOFs, 337 +- 2 iterations, residual <= 1e-4); every
                 kernel of those routes (the routed levels' bricks, the fused
                 group) against its plain version at these shapes, with its
-                share of its bound and its time over the CSR call's; A/B of
-                the default routes against every level fused
+                share of its bound and its time over its CSR call's (the
+                routed levels' A and W D); A/B of the default routes against
+                every level fused
   6 256      -- scenes.buckling(256): one frame on the default routes (brick
                 and split) against one with every level fused (an unbounded
                 budget), each through a make_solver of its own: launch counts
@@ -77,8 +80,8 @@ buckling-96 (only the first probes; one cached topology; the cold and cached
 build_system times) and the cuda frame against the float64 whole-array
 solve of the same frame (velocity within rel 5e-4, iterations +- 2).
 
-The last lines are a ``{"kernels": [...]}`` JSON line (fused_dt and
-dt_level also carry their registers, spill bytes, shared memory per block
+The last lines are a ``{"kernels": [...]}`` JSON line (the four matvec
+kernels also carry their registers, spill bytes, shared memory per block
 and resident blocks per SM), the nvidia-smi line, and ``{"ok": true,
 "device": {...}}``.  Every failed check raises; the whole
 run is bounded by an in-process deadline.  It imports nothing of JAX.
@@ -194,8 +197,9 @@ def ptxas_info(log, kernel):
     """Registers, spill bytes (stores + loads) and static shared memory of
     one kernel from nvcc's ``-Xptxas -v`` log; None where the library came
     from the cache (no log)."""
-    m = re.search(rf"Compiling entry function '[^']*{kernel}E[^']*'(.*?Used \d+ registers[^\n]*)",
-                  log, re.S)
+    # a kernel template's enhanced build (ILb1E) stands for it
+    m = re.search(rf"Compiling entry function '[^']*{kernel}(?:ILb1E)?E[^']*'"
+                  r"(.*?Used \d+ registers[^\n]*)", log, re.S)
     if not m:
         return None
     body = m.group(1)
@@ -330,39 +334,55 @@ def worst(*errs):
     return (max(e[0] for e in errs), max(e[1] for e in errs))
 
 
-def csr_yardstick(sys_, u_log, levels, reps):
-    """The library call: the assembled system of the stress blocks of
-    ``levels`` (mass of those levels only), exported on the host
-    (export.py, float64) and put on the card as a float32 CSR tensor, times
-    ``A @ x`` on the DOF vector of ``u_log`` (cuSPARSE).  Returns (ms,
-    A @ x as per-(level, axis) grids, export seconds, nonzeros)."""
+def _csr_on(M, dev):
+    """A scipy CSR matrix as a float32 CSR tensor on ``dev``."""
     import numpy as np
+    import torch
+
+    return torch.sparse_csr_tensor(torch.from_numpy(M.indptr.astype(np.int32)),
+                                   torch.from_numpy(M.indices.astype(np.int32)),
+                                   torch.from_numpy(M.data.astype(np.float32)),
+                                   M.shape).to(dev)
+
+
+def csr_yardstick(sys_, u_log, levels, reps):
+    """The library calls: the assembled system of the stress blocks of
+    ``levels`` (mass of those levels only), exported on the host
+    (export.py, float64) and put on the card as float32 CSR tensors, timed
+    on the DOF vector x of ``u_log`` (cuSPARSE): ``A @ x``, the whole apply,
+    and ``(W D) @ x`` over the stacked weighted gradient rows the export
+    forms A from, the tau function alone (tests/test_torch_level_apply.py
+    holds those rows to the plain tau).  Returns (A @ x ms, (W D) @ x ms,
+    A @ x as per-(level, axis) grids, export seconds, nonzeros of A and of
+    W D)."""
+    import numpy as np
+    import scipy.sparse as sp
     import torch
     from adaptiveviscositysolver_tpu_torch import export
 
     t = time.perf_counter()
     blocks = [b for b in sys_.blocks if b.level in levels]
     mass = {k: v if k[0] in levels else torch.zeros_like(v) for k, v in sys_.mass.items()}
-    A, _, vel_idx, n = export.export_sparse_system(blocks, mass, sys_.vel_kinds, sys_.guess,
-                                                   sys_.res_per_level)
+    A, _, vel_idx, n, D, w = export._assemble(blocks, mass, sys_.vel_kinds, sys_.guess,
+                                              sys_.res_per_level)
+    WD = (sp.diags(w) @ D).tocsr()
     export_s = time.perf_counter() - t
     dev = u_log[(0, 0)].device
-    A_t = torch.sparse_csr_tensor(torch.from_numpy(A.indptr.astype(np.int32)),
-                                  torch.from_numpy(A.indices.astype(np.int32)),
-                                  torch.from_numpy(A.data.astype(np.float32)), (n, n)).to(dev)
+    A_t, WD_t = _csr_on(A, dev), _csr_on(WD, dev)
     x = np.zeros(n, np.float32)
     for (l, a), idx in ((k, vel_idx[k[0]][k[1]]) for k in u_log):
         sel = idx >= 0
         x[idx[sel]] = u_log[(l, a)].cpu().numpy()[sel]
     x = torch.from_numpy(x).to(dev)
     ms = cuda_ms(lambda: A_t @ x, reps)
+    tau_ms = cuda_ms(lambda: WD_t @ x, reps)
     y = (A_t @ x).cpu().numpy()
     grids = {}
     for (l, a) in u_log:
         idx = vel_idx[l][a]
         grids[(l, a)] = torch.from_numpy(np.where(idx >= 0, y[np.clip(idx, 0, None)], 0.0)
                                          .astype(np.float32)).to(dev)
-    return ms, grids, export_s, int(A.nnz)
+    return ms, tau_ms, grids, export_s, (int(A.nnz), int(WD.nnz))
 
 
 def main():
@@ -403,15 +423,17 @@ def main():
                      + " | ".join(regs))
     log("build", f"total {build_s:.2f} s into {_build.BUILD_DIR}")
     assert build_s <= BUILD_BUDGET_S, f"build took {build_s:.1f} s > {BUILD_BUDGET_S} s"
-    dt_design = {}
-    for stem, name, kernel in (("fused_apply", "fused_dt", "avs_dt_kernel"),
-                               ("level_apply", "dt_level", "avs_dt_level_kernel")):
+    design = {}
+    for stem, name, kernel, k in (("fused_apply", "fused_tau", "avs_tau_kernel", "tau"),
+                                  ("fused_apply", "fused_dt", "avs_dt_kernel", "dt"),
+                                  ("level_apply", "tau_level", "avs_tau_level_kernel", "tau"),
+                                  ("level_apply", "dt_level", "avs_dt_level_kernel", "dt")):
         lib = fa._library(stem)     # load, bind, check the descriptor layout
         info = ptxas_info(builds[stem]["log"], kernel) or {}
-        info.update(smem_bytes=lib.avs_dt_smem_bytes() + info.get("static_smem_bytes", 0),
-                    blocks_per_sm=lib.avs_dt_blocks_per_sm())
-        info.pop("static_smem_bytes", None)
-        dt_design[name] = info
+        info.update(smem_bytes=getattr(lib, f"avs_{k}_smem_bytes")()
+                    + info.pop("static_smem_bytes", 0),
+                    blocks_per_sm=getattr(lib, f"avs_{k}_blocks_per_sm")())
+        design[name] = info
         log("build", f"{name} ({kernel}): {info}")
     probes._library()
 
@@ -465,15 +487,17 @@ def main():
                    f"{bounds['fused_dt'][0]:.4f} ms = {nbytes['dt'] / 1e6:.1f} MB); whole "
                    f"apply with glue {apply_ms:.4f} ms (plain {apply_plain_ms:.3f} ms) | {smi}")
 
-    # the library yardstick: one cuSPARSE CSR product computes the apply
-    lib_ms, lib_y, export_s, nnz = csr_yardstick(sys_, u_log, range(lv), reps)
+    # the library yardsticks: one cuSPARSE CSR product computes the apply,
+    # another the weighted stresses alone
+    lib_ms, lib_tau_ms, lib_y, export_s, nnz = csr_yardstick(sys_, u_log, range(lv), reps)
     lib_abs, lib_rel = max_rel_err((f"CSR A @ x vs apply {k}", cropped[k], lib_y[k])
                                    for k in lib_y)
-    log("kernels", f"library: CSR A @ x {lib_ms:.4f} ms per apply ({nnz} nonzeros, export "
-                   f"{export_s:.2f} s on the host), vs the kernels' apply max abs {lib_abs:.3e} "
+    log("kernels", f"library: CSR A @ x {lib_ms:.4f} ms per apply ({nnz[0]} nonzeros), "
+                   f"(W D) @ x {lib_tau_ms:.4f} ms ({nnz[1]} nonzeros), export {export_s:.2f} s "
+                   f"on the host; A @ x vs the kernels' apply max abs {lib_abs:.3e} "
                    f"(rel {lib_rel:.2e}) | {smi}")
-    log("kernels", "; ".join(vs_bound_and_library(k, m, bounds[k][0], lib_ms)
-                             for k, m in (("fused_tau", tau_ms), ("fused_dt", dt_ms))))
+    log("kernels", "; ".join(vs_bound_and_library(k, m, bounds[k][0], lm) for k, m, lm in
+                             (("fused_tau", tau_ms, lib_tau_ms), ("fused_dt", dt_ms, lib_ms))))
     del got, want, cropped, lib_y
 
     # ---- 2b every route on the same frame
@@ -745,9 +769,9 @@ def main():
         lvl_ms["dt_level"] += d_ms
         lvl_plain_ms["tau_level"] += tp_ms
         lvl_plain_ms["dt_level"] += dp_ms
-    # the library yardstick of the level pair: the system of the routed
-    # levels' stress blocks (and their mass), one CSR product
-    lib2_ms, _, export2_s, nnz2 = csr_yardstick(sys2, u2_log, routed2, 20)
+    # the library yardsticks of the level pair: the system of the routed
+    # levels' stress blocks (and their mass) and its W D, one CSR product each
+    lib2_ms, lib2_tau_ms, _, export2_s, nnz2 = csr_yardstick(sys2, u2_log, routed2, 20)
     nb2 = fa.kernel_bytes([metas2[l] for l in routed2])
     nf2 = fa.kernel_flops([metas2[l] for l in routed2], enh)
     bounds["tau_level"] = bound(nb2["tau"], nf2["tau"])
@@ -759,10 +783,11 @@ def main():
                f"ms, bound {bounds['tau_level'][0]:.4f} ms = {nb2['tau'] / 1e6:.1f} MB), "
                f"dt_level {lvl_ms['dt_level']:.4f} ms (plain {lvl_plain_ms['dt_level']:.2f} ms, "
                f"bound {bounds['dt_level'][0]:.4f} ms = {nb2['dt'] / 1e6:.1f} MB); library: CSR "
-               f"A @ x of those levels' blocks {lib2_ms:.4f} ms ({nnz2} nonzeros, export "
-               f"{export2_s:.2f} s on the host) | {smi}")
-    log("192", "; ".join(vs_bound_and_library(k, lvl_ms[k], bounds[k][0], lib2_ms)
-                         for k in ("tau_level", "dt_level")))
+               f"A @ x of those levels' blocks {lib2_ms:.4f} ms ({nnz2[0]} nonzeros), (W D) @ x "
+               f"{lib2_tau_ms:.4f} ms ({nnz2[1]} nonzeros), export {export2_s:.2f} s on the "
+               f"host | {smi}")
+    log("192", "; ".join(vs_bound_and_library(k, lvl_ms[k], bounds[k][0], lm) for k, lm in
+                         (("tau_level", lib2_tau_ms), ("dt_level", lib2_ms))))
 
     # A/B on the same frame: the default routes against every level fused
     fused_modes = ["fused"] * lv2
@@ -1024,10 +1049,11 @@ def main():
     del sys96, u96, fl_in, u_t1, c_t1, src, dst
 
     measured = {
-        "fused_tau": (launches["fused_tau"], err["fused_tau"][0], tau_ms, tau_plain_ms, lib_ms),
+        "fused_tau": (launches["fused_tau"], err["fused_tau"][0], tau_ms, tau_plain_ms,
+                      lib_tau_ms),
         "fused_dt": (launches["fused_dt"], err["fused_dt"][0], dt_ms, dt_plain_ms, lib_ms),
         "tau_level": (launches2["tau_level"], err["tau_level"][0], lvl_ms["tau_level"],
-                      lvl_plain_ms["tau_level"], lib2_ms),
+                      lvl_plain_ms["tau_level"], lib2_tau_ms),
         "dt_level": (launches2["dt_level"], err["dt_level"][0], lvl_ms["dt_level"],
                      lvl_plain_ms["dt_level"], lib2_ms),
         # no one PyTorch call computes either probe's function
@@ -1043,20 +1069,21 @@ def main():
             "source": f"adaptiveviscositysolver_tpu_torch/csrc/{SOURCE[name]}",
             "replaces": REPLACES[name], "launches": n_launch, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1], "library_ms": library_ms, **dt_design.get(name, {}),
+            "bound_by": bounds[name][1], "library_ms": library_ms, **design.get(name, {}),
         })
     print(json.dumps({"result": {
         "warm_frame_ms_median": statistics.median(warm), "cold_frame_s": cold_s,
         "build_s": build_s, "cg_iterations": st.iterations, "octree_dofs": st.octree_dofs,
         "regular_dofs": st.regular_dofs, "levels": len(st.active_cells),
         "apply_ms": apply_ms, "apply_plain_ms": apply_plain_ms, "library_apply_ms": lib_ms,
-        "export_s": export_s,
+        "library_tau_ms": lib_tau_ms, "export_s": export_s,
         "b192": {"routes": [str(m) for m in modes2], "cold_frame_s": cold2_s,
                  "warm_frame_ms": warm2, "cg_iterations": st_2.iterations,
                  "peak_gib": peak2 / 2**30,
                  "octree_dofs": st_2.octree_dofs, "regular_dofs": st_2.regular_dofs,
                  "apply_ms_default": ab["default"], "apply_ms_fused": ab["fused"],
-                 "library_level_ms": lib2_ms, "export_s": export2_s,
+                 "library_level_ms": lib2_ms, "library_level_tau_ms": lib2_tau_ms,
+                 "export_s": export2_s,
                  "level0_ms": {"routed": l0_routed, "split": l0_split, "fused": l0_fused}},
         "b256": {"routes": [str(m) for m in modes3], "frame_ms": {"default": msd, "fused": msf},
                  "cg_iterations": [sd.iterations, sf.iterations],

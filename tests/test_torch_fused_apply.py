@@ -209,59 +209,47 @@ def test_frame_data_matches_jax(fused_case):
             assert int(arr[0, 0, 0]) == fa.PACK_FILL and int(arr[-1, -1, -1]) == fa.PACK_FILL
 
 
-# A host loop over the kernels' math (csrc/fused_apply.cuh and
-# csrc/dt_tile.cuh are __host__ __device__): tau_point thread after thread,
-# and the tiled D^T routine block after block, the block's shared memory a
-# host buffer staged as the kernels stage it, so the algebra, the level and
-# brick addressing and the tile reach are checked here without a card.  The
-# tile extents (DT_TILE) leave partial tiles at the fixtures' box ends.
+# A host loop over the kernels' math (csrc/tau_tile.cuh, csrc/dt_tile.cuh
+# and their plumbing are __host__ __device__): each tiled routine block after
+# block, run as one thread on a host buffer for its shared memory, staging
+# included, so the algebra, the level and brick addressing and the tile
+# reach are checked here without a card.  The tile extents (TAU_TILE,
+# DT_TILE) leave partial tiles at the fixtures' box ends.
+TAU_TILE = (4, 6, 8)
 DT_TILE = (6, 4, 10)
 HOST_LOOP = r"""
 #include "dt_tile.cuh"
+#include "tau_tile.cuh"
+static float tau_smem[avs::kTauSmemBytes / 4];
+static float dt_smem[avs::kDtSmemBytes / 4];
 extern "C" {
 long long host_frame_bytes() { return (long long)sizeof(AvsFrame); }
 long long host_level_bytes() { return (long long)sizeof(AvsLevel); }
 long long host_reach_faults() { return avs::avs_host_reach_faults; }
 void host_tau(const AvsFrame* F) {
-  for (long long g = 0; g < F->total; ++g) {
-    int p[3]; int l = avs::locate(*F, g, p); avs::tau_point(F->lv[l], p, F->enhanced != 0);
+  for (long long b = 0; b < avs::frame_tiles<avs::TauShape>(*F); ++b) {
+    int o[3]; const int l = avs::locate_tile<avs::TauShape>(*F, b, o);
+    if (F->enhanced) avs::tau_tile_block<true>(F->lv[l], o, tau_smem, 0, 1);
+    else avs::tau_tile_block<false>(F->lv[l], o, tau_smem, 0, 1);
   }
 }
 void host_tau_level(const AvsLevel* L, int enhanced) {
-  for (long long t = 0; t < L->count; ++t) {
-    int p[3]; avs::sample_of(*L, t, p); avs::tau_point<false>(*L, p, enhanced != 0);
-  }
-}
-static void host_dt_block(const AvsLevel& L, const int o[3], bool enhanced) {
-  static float w[6][avs::kDtRegion];
-  static unsigned code[avs::kDtRegion];
-  const float* src[6] = {L.wte[0], L.wte[1], L.wte[2], L.wtc[0], L.wtc[1], L.wtc[2]};
-  for (int r = 0; r < avs::kDtRegion; ++r) {
-    int p[3]; avs::region_pos(o, r, p);
-    long long idx = 0; const bool ok = avs::tau_index(L, p, &idx);
-    for (int k = 0; k < 6; ++k) w[k][r] = ok ? src[k][idx] : 0.0f;
-    code[r] = avs::kind_code(L, p);
-  }
-  static avs::Coef coef[avs::kDtCoefs];
-  for (int k = 0; k < avs::kDtCoefs; ++k) coef[k] = avs::coef_entry(k, enhanced, (float)L.inv_dxw);
-  avs::DtTile T;
-  for (int k = 0; k < 6; ++k) T.w[k] = w[k];
-  T.code = code;
-  T.coef = coef;
-  for (int d = 0; d < 3; ++d) T.o[d] = o[d];
-  for (int k = 0; k < avs::kDtSamples; ++k) {
-    int v[3]; avs::tile_sample(o, k, v);
-    if (avs::in_launch(L, v)) avs::dt_tile_point(L, T, v, enhanced);
+  for (long long b = 0; b < avs::tile_count<avs::TauShape>(*L); ++b) {
+    int o[3]; avs::tile_origin<avs::TauShape>(*L, b, o);
+    if (enhanced) avs::tau_tile_block<true>(*L, o, tau_smem, 0, 1);
+    else avs::tau_tile_block<false>(*L, o, tau_smem, 0, 1);
   }
 }
 void host_dt(const AvsFrame* F) {
-  for (long long b = 0; b < avs::frame_tiles(*F); ++b) {
-    int o[3]; int l = avs::locate_tile(*F, b, o); host_dt_block(F->lv[l], o, F->enhanced != 0);
+  for (long long b = 0; b < avs::frame_tiles<avs::DtShape>(*F); ++b) {
+    int o[3]; const int l = avs::locate_tile<avs::DtShape>(*F, b, o);
+    avs::dt_tile_block(F->lv[l], o, F->enhanced != 0, dt_smem, 0, 1);
   }
 }
 void host_dt_level(const AvsLevel* L, int enhanced) {
-  for (long long b = 0; b < avs::tile_count(*L); ++b) {
-    int o[3]; avs::tile_origin(*L, b, o); host_dt_block(*L, o, enhanced != 0);
+  for (long long b = 0; b < avs::tile_count<avs::DtShape>(*L); ++b) {
+    int o[3]; avs::tile_origin<avs::DtShape>(*L, b, o);
+    avs::dt_tile_block(*L, o, enhanced != 0, dt_smem, 0, 1);
   }
 }
 }
@@ -275,7 +263,8 @@ def host_kernels(tmp_path_factory):
     d = tmp_path_factory.mktemp("host_kernels")
     (d / "host_loop.cpp").write_text(HOST_LOOP)
     csrc = Path(fa.__file__).resolve().parent.parent / "csrc"
-    tile = [f"-DAVS_DT_{ax}={n}" for ax, n in zip("XYZ", DT_TILE)]
+    tile = [f"-DAVS_{k}_T{ax}={n}" for k, ext in (("TAU", TAU_TILE), ("DT", DT_TILE))
+            for ax, n in zip("XYZ", ext)]
     subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", f"-I{csrc}", *tile, "-o",
                     str(d / "libhost.so"), str(d / "host_loop.cpp")], check=True,
                    capture_output=True, timeout=300)
@@ -284,7 +273,7 @@ def host_kernels(tmp_path_factory):
     lib.host_reach_faults.restype = ctypes.c_longlong
     lib.host_tau.argtypes = lib.host_dt.argtypes = [ctypes.c_void_p]
     lib.host_tau_level.argtypes = lib.host_dt_level.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    assert lib.host_frame_bytes() == (fa.MAX_LEVELS * fa._LEVEL_WORDS + 3) * 8
+    assert lib.host_frame_bytes() == (fa.MAX_LEVELS * fa._LEVEL_WORDS + 2) * 8
     assert lib.host_level_bytes() == fa._LEVEL_WORDS * 8
     return lib
 
@@ -293,6 +282,12 @@ def _nan_outputs(meta):
     """D^T output buffers filled with NaN: an element the routine does not
     write fails the comparison."""
     return {n: torch.full(meta.shape, float("nan")) for n in fa._dt_output_names(meta)}
+
+
+def _nan_tau(meta, rows=None):
+    """Weighted-stress buffers of x rows ``rows`` (all by default), NaN."""
+    nx = meta.shape[0] if rows is None else rows[1] - rows[0]
+    return {n: torch.full((nx,) + tuple(meta.shape[1:]), float("nan")) for n in fa.TAU_NAMES}
 
 
 def _window(s, canons, l, f):
@@ -308,20 +303,20 @@ def _close(got, want, what):
 
 
 def _host_matches_plain(host, args, metas, canons, enh, windows, what):
-    """csrc's tau_point and tiled D^T routine on the host, fed the same
+    """csrc's tiled tau and D^T routines on the host, fed the same
     descriptor words the CUDA launches get, against tau_plain / dt_plain:
     the all-level launches, and the level launches over a whole level
     ("split") and brick by brick (4-row bricks; the scratch of each holds
-    the brick plus the halo, from its own first row).  The D^T outputs
-    start as NaN, so every element of the launch's rows is written; out is
+    the brick plus the halo, from its own first row).  Every output starts
+    as NaN, so every element of the launch's rows is written; out is
     exactly 0 off the windows (``windows[l][f]``, the pads); no read leaves
     a tile's staged region."""
-    taus = [{n: torch.empty(m.shape) for n in fa.TAU_NAMES} for m in metas]
-    words, _ = fa._frame([{**a, **t} for a, t in zip(args, taus)], metas, enh)
+    taus = [_nan_tau(m) for m in metas]
+    words = fa._frame([{**a, **t} for a, t in zip(args, taus)], metas, enh)
+    faults = host.host_reach_faults()
     host.host_tau(words.ctypes.data)
     outs = [_nan_outputs(m) for m in metas]
-    words, _ = fa._frame([{**a, **t, **o} for a, t, o in zip(args, taus, outs)], metas, enh)
-    faults = host.host_reach_faults()
+    words = fa._frame([{**a, **t, **o} for a, t, o in zip(args, taus, outs)], metas, enh)
     host.host_dt(words.ctypes.data)
     want_t = fa._plain_tau(args, metas, enh)
     want_o = fa._plain_dt(args, taus, metas, enh)
@@ -335,7 +330,7 @@ def _host_matches_plain(host, args, metas, canons, enh, windows, what):
             out = _nan_outputs(meta)
             for rows in dataclasses.replace(canon, brick=brick).row_ranges():
                 t0, t1 = fa.tau_rows(rows, meta.shape[0])
-                tau = {n: torch.empty((t1 - t0,) + meta.shape[1:]) for n in fa.TAU_NAMES}
+                tau = _nan_tau(meta, (t0, t1))
                 words = fa._level_words({**a, **tau}, meta, rows=(t0, t1), tau_x0=t0,
                                         tau_nx=t1 - t0)
                 host.host_tau_level(words.ctypes.data, int(enh))
@@ -359,7 +354,8 @@ def test_kernel_math_on_host_matches_plain(fused_case, host_kernels):
     g = torch.Generator().manual_seed(1)
     u = embed_tree({k: torch.randn(m.shape, generator=g) * m for k, m in s["active"].items()})
     metas = apply_A.metas
-    assert any(m.shape[d] % DT_TILE[d] for m in metas for d in range(3))
+    for tile in (TAU_TILE, DT_TILE):
+        assert any(m.shape[d] % tile[d] for m in metas for d in range(3))
     windows = [[_window(s, c["canons"], l, f) for f in range(3)] for l in range(len(metas))]
     _host_matches_plain(host_kernels, apply_A.level_args(u), metas, c["canons"], enh, windows,
                         c["kind"])
@@ -441,6 +437,66 @@ def test_dt_reads_one_row_past_each_brick(fused_case, host_kernels):
             got = _reach_past_bricks(host_kernels, args[l], meta, enh, brick, (c["kind"], l))
             needed = [a or b for a, b in zip(needed, got)]
     assert needed == [True, True], needed
+
+
+def _tau_rows_of(host, args, meta, rows, enh, plain):
+    """wte/wtc of one level's x rows ``rows`` (even bounds) by the host tile
+    routine or the plain version, into NaN-prefilled buffers."""
+    tau = _nan_tau(meta, rows)
+    if plain:
+        return fa.plain_tau_level(args, meta, enh, rows, tau)
+    words = fa._level_words({**args, **tau}, meta, rows=rows, tau_x0=rows[0],
+                            tau_nx=rows[1] - rows[0])
+    host.host_tau_level(words.ctypes.data, int(enh))
+    return tau
+
+
+# x rows each input of the tau pass reads past a launch's rows [r0, r1):
+# (below r0, at or above r1), from csrc/tau_tile.cuh's reach
+TAU_READS = {"u": (2, 1), "up": (1, 1), "cs": (0, 1)}
+
+
+@pytest.mark.parametrize("fused_case", ["adaptive", "noenh"], indirect=True)
+def test_tau_reads_within_its_reach(fused_case, host_kernels):
+    """The tau pass over x rows [r0, r1) (2- and 4-row ranges, even bounds)
+    reads u0-2 on rows r0 - 2 to r1, up0-2 on r0 - 1 to r1 and cs0-2 on r0
+    to r1, and no others: with every other row of those inputs NaN, the
+    weighted stresses of the rows are unchanged (host tile routine and
+    plain version).  The lowest u row matters on this fixture: zeroing row
+    r0 - 2 of u0-2 changes them (the T5 block sum of an even sample with
+    slot d = 0 along x), so a reach of one row below is wrong."""
+    c, s = fused_case, fused_case["sys"]
+    enh = c["case"]["cfg"].use_enhanced_gradients
+    apply_A, embed_tree, _ = fa.make_fused_operator(c["frame"], c["canons"], s["active"],
+                                                    s["rpl"], c["case"]["dx"], enh)
+    g = torch.Generator().manual_seed(7)
+    u = embed_tree({k: torch.randn(m.shape, generator=g) * m for k, m in s["active"].items()})
+    needed = False
+    for l, (args, meta) in enumerate(zip(apply_A.level_args(u), apply_A.metas)):
+        cx = meta.shape[0]
+        for brick in (2, 4):
+            for r0 in range(0, cx, brick):
+                rows = (r0, min(cx, r0 + brick))
+                poisoned = dict(args)
+                for name in [n for n in args if n.rstrip("012") in TAU_READS]:
+                    lo, hi = TAU_READS[name.rstrip("012")]
+                    t = args[name].clone()
+                    t[:max(0, r0 - lo)] = float("nan")
+                    t[rows[1] + hi:] = float("nan")
+                    poisoned[name] = t
+                for plain in (False, True):
+                    base = _tau_rows_of(host_kernels, args, meta, rows, enh, plain)
+                    got = _tau_rows_of(host_kernels, poisoned, meta, rows, enh, plain)
+                    for n in base:
+                        assert torch.equal(got[n], base[n]), (c["kind"], l, rows, plain, n)
+                if r0 >= 2:
+                    cut = dict(args)
+                    for f in range(3):
+                        cut[f"u{f}"] = args[f"u{f}"].clone()
+                        cut[f"u{f}"][r0 - 2] = 0.0
+                    got = _tau_rows_of(host_kernels, cut, meta, rows, enh, False)
+                    needed |= any(not torch.equal(got[n], base[n]) for n in base)
+    assert needed, c["kind"]
 
 
 @pytest.fixture(scope="module")
@@ -533,6 +589,15 @@ def test_dt_level_refuses_odd_row_bounds(rows):
         fa.dt_level({}, {}, 0, meta, True, rows, {})
 
 
+@pytest.mark.parametrize("rows", [(1, 4), (0, 3), (1, 3)])
+def test_tau_level_refuses_odd_row_bounds(rows):
+    """tau_level runs on x rows with even bounds only, on any device: its
+    tiles rest on even origins (tau_rows gives even bounds)."""
+    meta = fa.LevelMeta(0, (4, 4, 4), 0.5, False, False, (3, 3, 3))
+    with pytest.raises(ValueError, match="even bounds"):
+        fa.tau_level({}, meta, True, rows, {})
+
+
 def test_kernel_bytes_count_the_logical_window():
     """The byte bound counts each level's window (cells + closing face
     row), whatever the canonical pad: one uncropped 4^3 level by hand, a
@@ -572,8 +637,9 @@ def test_descriptor_layout_matches_header():
     ptrs = words[:len(fa._PTR_FIELDS)]
     # header names: u0.. up0.. cs0.. kp0.. we0.. wc m0.. wte0.. wtc0.. out0.. zp0.. zc0..
     assert ptrs == fa._PTR_FIELDS
-    assert words[35:] == ["cx", "cy", "cz", "start", "count", "has_parent", "has_child",
-                          "inv_dxw", "row0", "tau_x0", "tau_nx"]
+    assert words[35:] == ["cx", "cy", "cz", "count", "has_parent", "has_child", "inv_dxw",
+                          "row0", "tau_x0", "tau_nx"]
+    assert words.index("count") == fa._COUNT_WORD
     assert len(words) == fa._LEVEL_WORDS
     assert re.search(r"#define AVS_MAX_LEVELS (\d+)", src).group(1) == str(fa.MAX_LEVELS)
 

@@ -1,5 +1,5 @@
 """The port's per-level kernels on a CUDA card (tau_level, dt_level), the
-all-level D^T kernel (fused_dt) and its probe kernels (banded_apply,
+all-level kernels (fused_tau, fused_dt) and its probe kernels (banded_apply,
 stream_floor) against their plain versions, a
 routed solve on the card against the same solve on the CPU, and make_solver's
 cached topology on the card against fresh solves.
@@ -11,10 +11,11 @@ card and no JAX; there the suite's conftest (which sets JAX up) is left out:
 
 Without a card every test skips.  The inputs are the port's own
 buckling-32 frame, and beam-48 on make_solver's crop windows, whose boxes
-the D^T tiles divide on no axis; routes are forced per level (``fused_apply.route_canons``
-and ``make_fused_operator(modes=)``, or ``fused_apply.route_budget``
-patched for a whole solve).  Bar: 3e-5 * max|plain| per level, brick and
-output (float32, sums in another order), as in chip_smoke.py.
+the tau and D^T tiles divide on no axis; routes are forced per level
+(``fused_apply.route_canons`` and ``make_fused_operator(modes=)``, or
+``fused_apply.route_budget`` patched for a whole solve).  Bar: 3e-5 *
+max|plain| per level, brick and output (float32, sums in another order),
+as in chip_smoke.py.
 """
 
 import dataclasses
@@ -65,26 +66,18 @@ def _routed(card_frame, route):
 
 
 def _tau(meta, rows):
-    return {n: torch.empty((rows[1] - rows[0],) + tuple(meta.shape[1:]), device="cuda")
-            for n in fa.TAU_NAMES}
+    """Weighted-stress buffers of x rows ``rows``, NaN: an element the
+    kernel does not write fails the comparison."""
+    return {n: torch.full((rows[1] - rows[0],) + tuple(meta.shape[1:]), float("nan"),
+                          device="cuda") for n in fa.TAU_NAMES}
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("route", sorted(ROUTES))
-def test_tau_level_matches_plain_on_card(card_frame, route):
-    for l, args, meta, canon in _routed(card_frame, route):
-        for rows in canon.row_ranges():
-            t = fa.tau_rows(rows, meta.shape[0])
-            before = fa.launch_counts["tau_level"]
-            got = fa.tau_level(args, meta, True, t, _tau(meta, t))
-            assert fa.launch_counts["tau_level"] == before + 1
-            _close(got, fa.plain_tau_level(args, meta, True, t, _tau(meta, t)), (route, l, t))
-
-
-def _dt_tile():
-    """The D^T kernels' tile extents (csrc/dt_tile.cuh's defaults)."""
-    src = (Path(fa.__file__).resolve().parent.parent / "csrc" / "dt_tile.cuh").read_text()
-    return tuple(int(re.search(rf"#define AVS_DT_T{ax} (\d+)", src).group(1)) for ax in "XYZ")
+def _tiles():
+    """The tau and D^T kernels' tile extents (csrc's defaults)."""
+    csrc = Path(fa.__file__).resolve().parent.parent / "csrc"
+    return [tuple(int(re.search(rf"#define AVS_{k}_T{ax} (\d+)", (csrc / src).read_text())
+                      .group(1)) for ax in "XYZ")
+            for k, src in (("TAU", "tau_tile.cuh"), ("DT", "dt_tile.cuh"))]
 
 
 @pytest.fixture(scope="module")
@@ -97,9 +90,8 @@ def cropped_frame():
     lv, windows = solver.probe_topology(state, SolverConfig(octree_levels=3), device="cuda")
     sys_ = solver.build_system(state, DT, SolverConfig(octree_levels=lv), device="cuda",
                                bboxes=windows, pad_levels=3)
-    tile = _dt_tile()
-    assert lv == 2 and all(c.shape[d] % tile[d] for c in sys_.canons for d in range(3)), \
-        [c.shape for c in sys_.canons]
+    assert lv == 2 and all(c.shape[d] % t[d] for t in _tiles() for c in sys_.canons
+                           for d in range(3)), [c.shape for c in sys_.canons]
     g = torch.Generator(device="cpu").manual_seed(4)
     u_log = {k: torch.randn(m.shape, generator=g).to("cuda") * m for k, m in sys_.active.items()}
     return sys_, u_log, state.dx
@@ -130,6 +122,23 @@ def _level_routes(frame, route):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("route", sorted(ROUTES) + ["cropped"])
+def test_tau_level_matches_plain_on_card(card_frame, cropped_frame, route):
+    """tau_level against plain_tau_level on every x-row range (the rows
+    tau_rows gives each), buffers prefilled with NaN (every element of the
+    rows is written)."""
+    frame = cropped_frame if route == "cropped" else card_frame
+    for l, args, meta, canon in _level_routes(frame, route):
+        for rows in canon.row_ranges():
+            t = fa.tau_rows(rows, meta.shape[0])
+            before = fa.launch_counts["tau_level"]
+            got = fa.tau_level(args, meta, True, t, _tau(meta, t))
+            assert fa.launch_counts["tau_level"] == before + 1
+            _close(got, fa.plain_tau_level(args, meta, True, t, _tau(meta, t)),
+                   (route, l, canon.brick, t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(ROUTES) + ["cropped"])
 def test_dt_level_matches_plain_on_card(card_frame, cropped_frame, route):
     """dt_level against plain_dt_level on every x-row range, outputs
     prefilled with NaN (every element of the rows is written), out exactly
@@ -146,6 +155,22 @@ def test_dt_level_matches_plain_on_card(card_frame, cropped_frame, route):
             fa.plain_dt_level(args, tau, t[0], meta, True, rows, want)
         _close(got, want, (route, l, canon.brick))
         _out_masked(got, args, meta, (route, l, canon.brick))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["buckling-32", "cropped"])
+def test_fused_tau_matches_plain_on_card(card_frame, cropped_frame, frame):
+    """fused_tau over every level in one launch against _plain_tau, buffers
+    prefilled with NaN."""
+    sys_, u_log, dx = cropped_frame if frame == "cropped" else card_frame
+    apply_A = sys_.apply_A
+    args = apply_A.level_args(sys_.embed_tree(u_log))
+    metas = apply_A.metas
+    before = fa.launch_counts["fused_tau"]
+    got = fa.fused_tau(args, metas, True, out=[_tau(m, (0, m.shape[0])) for m in metas])
+    assert fa.launch_counts["fused_tau"] == before + 1
+    for l, (g, w) in enumerate(zip(got, fa._plain_tau(args, metas, True))):
+        _close(g, w, (frame, l))
 
 
 @pytest.mark.gpu

@@ -6,7 +6,7 @@ pair once per brick of T x rows, over a weighted-stress scratch holding the
 brick plus its halo).  On the CPU the wrappers run their plain versions,
 restricted to the rows; the CUDA kernels are held to those plain versions
 by the ``gpu``-marked tests in tests/test_torch_gpu.py and by
-chip_smoke.py, and their per-point addressing by the host build in
+chip_smoke.py, and their tiled addressing by the host build in
 tests/test_torch_fused_apply.py.
 
 The bar is the one tests/test_pallas_apply.py holds the Pallas split and
@@ -267,3 +267,55 @@ def test_export_matches_jax_export():
     np.testing.assert_allclose(A.data, want_A.data, rtol=1e-12,
                                atol=1e-12 * np.abs(want_A.data).max())
     np.testing.assert_allclose(rhs, want_rhs, rtol=1e-12, atol=1e-12 * np.abs(want_rhs).max())
+
+
+def test_export_gradient_rows_give_the_weighted_stresses():
+    """export's stacked gradient rows (``export._assemble``'s D and w), the
+    yardstick chip_smoke.py times beside the tau kernels: ``w * (D @ x)``
+    on the DOF vector of a random u equals the plain tau (tau_plain, the
+    kernels' plain version) on every stress block's rows, cropped from the
+    canonical box, within 3e-5 * max per block; D has one row per sample of
+    every block's weight grid, and the export's A equals M + D^T W D."""
+    case = build_case()
+    s = _port_system(case)
+    rpl, enh = s["rpl"], case["cfg"].use_enhanced_gradients
+    blocks32 = [stencils.StressBlock(b.kind, b.level, b.axis, _f32(b.weight),
+                                     [stencils.StressTerm(t.lift, t.face_axis, t.src_level,
+                                                          t.offset, _f32(t.coeff))
+                                      for t in b.terms], _f32(b.boundary))
+                for b in s["blocks"]]
+    frame, canons = fa.build_frame_data(s["labels"], s["vk"], s["ek"], s["ck"], blocks32,
+                                        {k: v.to(F32) for k, v in s["mass"].items()}, rpl)
+    apply_A, embed_tree, _ = fa.make_fused_operator(frame, canons, s["active"], rpl,
+                                                    case["dx"], enh)
+    rng = np.random.default_rng(8)
+    u = {k: np.where(N(m), rng.normal(size=m.shape), 0.0).astype(np.float32)
+         for k, m in s["active"].items()}
+    taus = fa._plain_tau(apply_A.level_args(embed_tree({k: torch.from_numpy(v)
+                                                        for k, v in u.items()})),
+                         apply_A.metas, enh)
+    guess = {k: torch.zeros(m.shape, dtype=torch.float64) for k, m in s["active"].items()}
+    A, _, vel_idx, n, D, w = export._assemble(s["blocks"], s["mass"], s["vk"], guess, rpl)
+    x = np.zeros(n)
+    for (l, a), v in u.items():
+        sel = vel_idx[l][a] >= 0
+        x[vel_idx[l][a][sel]] = v[sel]
+    y = w * (D @ x)
+    row = 0
+    for b in s["blocks"]:
+        shape = tuple(b.weight.shape)
+        name = f"wte{b.axis}" if b.kind == "edge" else f"wtc{b.axis}"
+        want = N(fa.crop(taus[b.level][name], canons[b.level], shape))
+        got = y[row:row + want.size].reshape(shape)
+        row += want.size
+        scale = max(np.abs(want).max(), 1e-30)
+        assert np.abs(got - want).max() <= TOL * scale, (b.kind, b.level, b.axis)
+    assert row == D.shape[0] == w.size
+    mdiag = np.zeros(n)
+    for (l, a), m in s["mass"].items():
+        sel = vel_idx[l][a] >= 0
+        mdiag[vel_idx[l][a][sel]] = N(m)[sel]
+    import scipy.sparse as sp
+
+    want_A = (sp.diags(mdiag) + D.T @ sp.diags(w) @ D).tocsr()
+    assert abs(A - want_A).max() <= 1e-12 * abs(want_A).max()
