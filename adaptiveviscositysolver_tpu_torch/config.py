@@ -27,12 +27,28 @@ class SolverConfig:
 
     use_enhanced_gradients: bool = True
 
-    # CG: Jacobi-preconditioned, Eigen's stopping rule (cpp:62-66, 611-631).
-    # The JAX package's Chebyshev preconditioner, iterative refinement,
-    # cancellation polling and reference-compat solid-boundary component
-    # are not ported yet (convert.config_from_jax_fields refuses them).
+    # True samples the edge-axis component of the solid velocity for
+    # solid-boundary faces in the shear-stress rhs, as the reference does
+    # (cpp:1901); False (default) the face-axis component the replaced face
+    # carries.
+    compat_edge_boundary_component: bool = False
+
+    # CG: Eigen's stopping rule (cpp:62-66, 611-631).
     tolerance: float = 1e-3
     max_iterations: int = 2500
+
+    # Preconditioner: 1 = Jacobi (the reference's); k > 1 (odd) = a fixed
+    # degree-k Chebyshev polynomial in the Jacobi-scaled operator
+    # (operator.make_chebyshev_precond): about k-fold fewer CG iterations
+    # at k applies each.  Even degrees go indefinite on eigenvalues above
+    # the power-iteration estimate of lam_max, so they are refused.
+    # Ignored under iterative refinement.
+    cheb_degree: int = 1
+
+    # Cooperative cancellation: every this-many CG iterations the solve
+    # reads the process-wide flag of utils/cancel.py and stops when it is
+    # set, returning the partial iterate.  0 = never.
+    cancel_poll_iters: int = 0
 
     # None inherits the input fields' dtype
     dtype: Optional[torch.dtype] = None
@@ -44,14 +60,33 @@ class SolverConfig:
     #             PyTorch version on CPU tensors.  float32 only.
     #   "v1"   -- whole-array PyTorch operator with materialized
     #             coefficients (operator.make_operator), any dtype
+    #   "v1-fused" -- "v1" with the coefficients rebuilt inside every apply
     apply_impl: str = "auto"
+
+    # Mixed precision: a float32 inner CG inside an iterative-refinement
+    # loop whose residual is formed in the input dtype
+    # (operator.pcg_refined); the solve then runs "v1-fused".
+    use_iterative_refinement: bool = False
+
+    @property
+    def fused_apply(self) -> bool:
+        return self.apply_impl.endswith("-fused")
 
     def __post_init__(self):
         if self.octree_levels < 1:
             raise ValueError("octree_levels must be >= 1")
         if self.num_supersamples < 1:
             raise ValueError("num_supersamples must be >= 1")
-        allowed = {"auto", "cuda", "v1"}
+        if self.cheb_degree < 1:
+            raise ValueError("cheb_degree must be >= 1")
+        if self.cancel_poll_iters < 0:
+            raise ValueError("cancel_poll_iters must be >= 0")
+        if self.cheb_degree > 1 and self.cheb_degree % 2 == 0:
+            raise ValueError(
+                "cheb_degree must be odd: even-degree Chebyshev is indefinite on "
+                f"eigenvalues above the estimated lam_max (got {self.cheb_degree}; "
+                f"use {self.cheb_degree + 1})")
+        allowed = {"auto", "cuda", "v1", "v1-fused"}
         if self.apply_impl not in allowed:
             raise ValueError(f"apply_impl must be one of {sorted(allowed)}")
 

@@ -15,10 +15,7 @@ import torch
 
 from .config import SolverConfig
 
-_APPLY_IMPL = {"auto": "auto", "pallas": "cuda", "v1": "v1", "v1-fused": "v1"}
-# JAX-only options and the only value the port implements for each
-_UNPORTED = {"cheb_degree": 1, "cancel_poll_iters": 0, "use_iterative_refinement": False,
-             "compat_edge_boundary_component": False}
+_APPLY_IMPL = {"auto": "auto", "pallas": "cuda", "v1": "v1", "v1-fused": "v1-fused"}
 
 
 def fluid_state_from_numpy(liquid_sdf, solid_sdf, velocity: Sequence, solid_velocity: Sequence,
@@ -43,13 +40,8 @@ def fluid_state_from_numpy(liquid_sdf, solid_sdf, velocity: Sequence, solid_velo
 def config_from_jax_fields(**fields) -> SolverConfig:
     """A port :class:`SolverConfig` from the JAX ``SolverConfig``'s fields
     (``dataclasses.asdict`` of it).  ``dtype`` may be a numpy/JAX dtype or
-    its name; ``apply_impl`` maps "pallas" to "cuda" and "v1-fused" to "v1"
-    (identical numerics).  Options the port does not implement yet must
-    hold their default."""
+    its name; ``apply_impl`` maps "pallas" to "cuda"."""
     fields = dict(fields)
-    for name, default in _UNPORTED.items():
-        if fields.pop(name, default) != default:
-            raise NotImplementedError(f"{name} is not ported yet (need {default!r})")
     dt = fields.get("dtype")
     if dt is not None:
         fields["dtype"] = getattr(torch, np.dtype(dt).name)

@@ -1,11 +1,12 @@
-"""T-junction-consistent octree velocity interpolation (port of the
-writeback half of ``interpolator.py``).
+"""T-junction-consistent octree velocity interpolation (port of
+``interpolator.py``).
 
 Dense form of HDK_OctreeVectorFieldInterpolator
 (reference Source/HDK_OctreeVectorFieldInterpolator.{h,cpp}): per-level
 node velocities that agree across T-junctions (phases 1-6 of the
 constructor, h:30-138), then interpSPGrid (cpp:660-845) evaluated at every
-level-0 face center at once for the writeback.
+level-0 face center at once for the writeback, or at arbitrary points
+(:func:`interp_at`, all points at once as tensor ops).
 """
 
 from __future__ import annotations
@@ -304,3 +305,114 @@ def interpolate_writeback_fields(labels, u, vel_kinds, levels):
     consumes at UNASSIGNED level-0 faces."""
     node_vals, _ = build_node_velocities(labels, u, vel_kinds)
     return [interpolate_level0_faces(labels, u, vel_kinds, node_vals, a) for a in range(3)]
+
+
+def _read3(arr: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
+    """``arr[idx[i]]`` for each integer triple of ``idx`` (N, 3); a triple
+    outside ``arr`` reads ``fill``."""
+    shp = torch.tensor(arr.shape, dtype=idx.dtype, device=idx.device)
+    ok = ((idx >= 0) & (idx < shp)).all(dim=1)
+    c = torch.minimum(idx.clamp_min(0), shp - 1).long()
+    val = arr[c[:, 0], c[:, 1], c[:, 2]]
+    return torch.where(ok, val, torch.full((), fill, dtype=arr.dtype, device=arr.device))
+
+
+def interp_at(labels, u: Dict[Tuple[int, int], torch.Tensor], vel_kinds, node_vals,
+              points: torch.Tensor, axis: int) -> torch.Tensor:
+    """T-junction-consistent velocity component ``axis`` at arbitrary
+    positions: the reference interpolator's point query
+    ``interpSPGrid(pos, axis)`` (cpp:660-845, h:140).  ``points`` is (N, 3)
+    in fine-cell index units (world coordinates divided by ``dx``);
+    ``node_vals`` comes from :func:`build_node_velocities`.  A point whose
+    column has no ACTIVE cell at any level reads 0.  The level descent runs
+    over all points at once, the trilinear fast path and the node /
+    pyramid-bump path both evaluated and selected per point."""
+    levels = len(labels)
+    dtype = u[(0, 0)].dtype
+    dev = u[(0, 0)].device
+    pos = torch.as_tensor(points).to(device=dev, dtype=dtype)
+    n = pos.shape[0]
+    t_axes = [d for d in range(3) if d != axis]
+    e_axis = torch.tensor([1 if d == axis else 0 for d in range(3)], dtype=torch.int32,
+                          device=dev)
+    cell0 = torch.floor(pos).to(torch.int32)
+
+    def face_branch(fl, af):
+        """Node bilinear + pyramid bump on faces ``af`` at level ``fl``
+        (cpp:794-837)."""
+        ph = pos / (1 << fl)
+        fw = [ph[:, t] - torch.floor(ph[:, t]) for t in t_axes]
+        face_u = _read3(u[(fl, axis)], af, 0.0)
+        bil = torch.zeros(n, dtype=dtype, device=dev)
+        avg = torch.zeros(n, dtype=dtype, device=dev)
+        for b0 in (0, 1):
+            for b1 in (0, 1):
+                bb = {t_axes[0]: b0, t_axes[1]: b1}
+                nd = af + torch.tensor([bb.get(d, 0) for d in range(3)], dtype=torch.int32,
+                                       device=dev)
+                nv = _read3(node_vals[fl][axis], nd, 0.0)
+                w = (fw[0] if b0 else 1.0 - fw[0]) * (fw[1] if b1 else 1.0 - fw[1])
+                bil = bil + w * nv
+                avg = avg + nv
+        bump_w = torch.minimum(torch.minimum(fw[0], 1.0 - fw[0]),
+                               torch.minimum(fw[1], 1.0 - fw[1]))
+        return bil + 2.0 * (face_u - 0.25 * avg) * bump_w
+
+    result = torch.zeros(n, dtype=dtype, device=dev)
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    for level in range(levels):
+        h = 1 << level
+        cell = cell0 >> level
+        is_active = _read3(labels[level], cell, octree.INACTIVE) == octree.ACTIVE
+
+        # fast path: trilinear over the 8 surrounding faces (cpp:683-728)
+        fpt = pos / h - torch.tensor([0.0 if d == axis else 0.5 for d in range(3)],
+                                     dtype=dtype, device=dev)
+        bf = torch.floor(fpt).to(torch.int32)
+        fr = (fpt - bf).clamp(0.0, 1.0)
+        fast_val = torch.zeros(n, dtype=dtype, device=dev)
+        at_transition = torch.zeros(n, dtype=torch.bool, device=dev)
+        for fi in range(8):
+            b = torch.tensor([(fi >> d) & 1 for d in range(3)], dtype=torch.int32, device=dev)
+            nb = bf + b
+            at_transition |= _read3(vel_kinds[level][axis], nb, OUTSIDE) == UNASSIGNED
+            uv = _read3(u[(level, axis)], nb, 0.0)
+            w = torch.where(b == 1, fr, 1.0 - fr).prod(dim=1)
+            fast_val = fast_val + w * uv
+
+        # node path (cpp:729-837)
+        t_cell = (pos[:, axis] / h - cell[:, axis]).clamp(0.0, 1.0)
+        dir_vals = []
+        for direction in (0, 1):
+            af = cell + direction * e_axis
+            k_dir = _read3(vel_kinds[level][axis], af, OUTSIDE)
+            same_val = face_branch(level, af)
+            if level > 0:
+                # big face unassigned: the child face whose transverse span
+                # holds the point (cpp:753-790)
+                child_pt = pos / (1 << (level - 1))
+                pick = torch.stack([torch.zeros(n, dtype=torch.int32, device=dev) if d == axis
+                                    else (child_pt[:, d] - 2 * af[:, d] > 1.0).to(torch.int32)
+                                    for d in range(3)], dim=1)
+                child_val = face_branch(level - 1, 2 * af + pick)
+                dir_vals.append(torch.where(k_dir == UNASSIGNED, child_val, same_val))
+            else:
+                dir_vals.append(same_val)
+        node_val = (1.0 - t_cell) * dir_vals[0] + t_cell * dir_vals[1]
+
+        value = torch.where(at_transition, node_val, fast_val)
+        result = torch.where(found | ~is_active, result, value)
+        found = found | is_active
+    return result
+
+
+def make_point_interpolator(labels, u, vel_kinds):
+    """Build the node pyramid once and return ``query(points, axis)`` (the
+    analog of constructing HDK_OctreeVectorFieldInterpolator, h:30-138, and
+    calling interpSPGrid per sample)."""
+    node_vals, _ = build_node_velocities(labels, u, vel_kinds)
+
+    def query(points: torch.Tensor, axis: int) -> torch.Tensor:
+        return interp_at(labels, u, vel_kinds, node_vals, points, axis)
+
+    return query

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from .ops.arrayops import down_reduce_cells, shift, upread
@@ -76,6 +77,12 @@ def build_octree(mask: torch.Tensor, levels: int) -> List[torch.Tensor]:
     return labels
 
 
+def refine_grid(labels: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Every level at twice its resolution (HDK_OctreeGrid::refineGrid,
+    cpp:1306-1362): each new cell copies its parent's label."""
+    return [upread(lab, tuple(2 * n for n in lab.shape)) for lab in labels]
+
+
 def active_cell_counts(labels: Sequence[torch.Tensor]) -> torch.Tensor:
     """Number of ACTIVE cells per level."""
     return torch.stack([(lab == ACTIVE).sum() for lab in labels])
@@ -101,6 +108,25 @@ def occupied_bboxes(labels: Sequence[torch.Tensor]) -> List[torch.Tensor]:
                                      torch.where(empty, zero, hi)]))
         out.append(torch.stack(rows))
     return out
+
+
+def octree_geometry(labels: Sequence[torch.Tensor], dx: float, origin=(0.0, 0.0, 0.0)):
+    """ACTIVE cell centers with per-point scale and level, the analog of
+    outputOctreeGeometry (HDK_OctreeGrid.cpp:245-308).  A host helper:
+    returns numpy arrays positions (N, 3), pscale (N,), level (N,)."""
+    positions, pscales, levs = [], [], []
+    for level, lab in enumerate(labels):
+        lab = lab.cpu().numpy() if isinstance(lab, torch.Tensor) else np.asarray(lab)
+        level_dx = dx * (1 << level)
+        idx = np.argwhere(lab == ACTIVE)
+        if idx.size == 0:
+            continue
+        positions.append((idx + 0.5) * level_dx + np.asarray(origin))
+        pscales.append(np.full(len(idx), level_dx))
+        levs.append(np.full(len(idx), level, np.int32))
+    if not positions:
+        return np.zeros((0, 3)), np.zeros(0), np.zeros(0, np.int32)
+    return np.concatenate(positions), np.concatenate(pscales), np.concatenate(levs)
 
 
 def build_refinement_mask(liquid_sdf, solid_sdf, dx: float, extrapolation: float,

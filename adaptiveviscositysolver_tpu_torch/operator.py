@@ -1,5 +1,5 @@
-"""Matrix-free application of the viscosity system (port of the main-path
-half of ``operator.py``).
+"""Matrix-free application of the viscosity system and its CG solvers
+(port of ``operator.py``).
 
     A u  =  M u  +  D^T (W (D u))
     rhs  =  M guess  -  D^T (W b)
@@ -14,7 +14,7 @@ the port's in-package reference for the fused CUDA apply.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +29,7 @@ from .ops.arrayops import (
     upread_adjoint,
 )
 from .stencils import StressBlock, StressTerm
+from .utils import cancel
 
 UField = Dict[Tuple[int, int], torch.Tensor]
 
@@ -92,14 +93,21 @@ def _masked(active: torch.Tensor, value: torch.Tensor, fill: float) -> torch.Ten
 
 
 def make_operator(blocks: Sequence[StressBlock], mass: UField, active: UField,
-                  res_per_level):
+                  res_per_level,
+                  terms_builder: Optional[Callable[[], Sequence[StressBlock]]] = None):
     """Return (apply_A, diag): the SPD matvec and its Jacobi diagonal.
-    ``active`` are boolean FLUID masks per (level, axis)."""
+    ``active`` are boolean FLUID masks per (level, axis).
+
+    ``terms_builder``: a zero-argument callable returning blocks parallel to
+    ``blocks`` whose terms every apply uses in place of ``blocks``'s (the
+    weights stay ``blocks``'s): the "v1-fused" operator rebuilds its
+    coefficients from the int8 kind grids inside each apply."""
 
     def apply_A(u: UField) -> UField:
-        taus = apply_D(blocks, u, res_per_level)
+        work = terms_builder() if terms_builder is not None else blocks
+        taus = apply_D(work, u, res_per_level)
         taus = [b.weight * t for b, t in zip(blocks, taus)]
-        out = apply_DT(blocks, taus, u, res_per_level)
+        out = apply_DT(work, taus, u, res_per_level)
         return {k: _masked(active[k], out[k] + mass[k] * u[k], 0.0) for k in u}
 
     diag = {k: torch.zeros_like(v) for k, v in mass.items()}
@@ -123,8 +131,43 @@ def boundary_rhs(blocks: Sequence[StressBlock], mass: UField, guess: UField,
 
 
 # ---------------------------------------------------------------------------
-# flat-vector Jacobi PCG
+# CG over grid dicts, and over one flat vector
 # ---------------------------------------------------------------------------
+
+
+def tree_dot(x: UField, y: UField) -> torch.Tensor:
+    return sum(torch.sum(x[k] * y[k]) for k in x)
+
+
+def tree_axpy(a, x: UField, y: UField) -> UField:
+    return {k: a * x[k] + y[k] for k in x}
+
+
+def pcg(apply_A, rhs: UField, x0: UField, diag: UField, tolerance: float,
+        max_iterations: int):
+    """Jacobi PCG over grid dicts, Eigen's stopping rule ||r||_2 <= tol *
+    ||b||_2 (cpp:611-631), tested before each iteration at one host read.
+    Returns (x, iterations, relative residual, applies)."""
+    inv_diag = {k: 1.0 / diag[k] for k in diag}
+    b_norm2 = tree_dot(rhs, rhs)
+    threshold = tolerance * tolerance * b_norm2
+    r = {k: rhs[k] - v for k, v in apply_A(x0).items()}
+    z = {k: inv_diag[k] * r[k] for k in r}
+    rz = tree_dot(r, z)
+    x, p = x0, z
+    it = 0
+    while it < max_iterations and bool(tree_dot(r, r) > threshold):
+        ap = apply_A(p)
+        alpha = rz / tree_dot(p, ap)
+        x = tree_axpy(alpha, p, x)
+        r = tree_axpy(-alpha, ap, r)
+        z = {k: inv_diag[k] * r[k] for k in r}
+        rz_new = tree_dot(r, z)
+        p = tree_axpy(rz_new / rz, p, z)
+        rz = rz_new
+        it += 1
+    rel = torch.sqrt(tree_dot(r, r) / b_norm2.clamp_min(1e-300))
+    return x, it, rel, it + 1
 
 
 def make_packer(shapes: Dict[Tuple[int, int], Tuple[int, int, int]]):
@@ -148,14 +191,20 @@ def make_packer(shapes: Dict[Tuple[int, int], Tuple[int, int, int]]):
 
 def _flat_pcg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
               x0: torch.Tensor, invd: torch.Tensor, threshold: torch.Tensor,
-              max_iterations: int):
-    """Flat-vector Jacobi PCG: iterate while ``||r||^2 > threshold`` (tested
-    before each iteration, as the JAX ``while_loop`` does).  Reading the
-    test costs one host sync per iteration.  Returns (x, iterations,
-    ||r||^2, applies)."""
+              max_iterations: int, precond: Optional[Callable] = None, cancel_poll: int = 0):
+    """Flat-vector PCG: iterate while ``||r||^2 > threshold`` (tested before
+    each iteration, as the JAX ``while_loop`` does; reading the test costs
+    one host sync per iteration).  ``precond`` replaces the Jacobi ``z =
+    invd * r`` with any fixed SPD map (:func:`make_chebyshev_precond`).
+    ``cancel_poll > 0``: every that-many iterations, after the increment,
+    read ``utils.cancel``'s flag and stop before the next iteration when it
+    is set.  Returns (x, iterations, ||r||^2)."""
+    if precond is None:
+        def precond(r):
+            return invd * r
     r = b - A(x0)
     rr = torch.dot(r, r)
-    z = invd * r
+    z = precond(r)
     rz = torch.dot(r, z)
     p = z
     x = x0
@@ -166,29 +215,137 @@ def _flat_pcg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
         x = x + alpha * p
         r = r - alpha * ap
         rr = torch.dot(r, r)
-        z = invd * r
+        z = precond(r)
         rz_new = torch.dot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
         it += 1
-    return x, it, rr, it + 1
+        if cancel_poll > 0 and it % cancel_poll == 0 and cancel.is_requested():
+            break
+    return x, it, rr
+
+
+def estimate_lambda_max(A, invd: torch.Tensor, v0: torch.Tensor, iters: int = 12):
+    """Largest eigenvalue of the Jacobi-scaled operator ``invd * A`` by
+    ``iters`` power iterations, as the Rayleigh quotient in the D inner
+    product (a lower bound until converged: callers pad it).  ``iters`` + 1
+    applies; no host read."""
+    eps = torch.tensor(1e-30, dtype=v0.dtype, device=v0.device)
+    v = v0 * torch.rsqrt(torch.dot(v0, v0) + eps)
+    for _ in range(iters):
+        w = invd * A(v)
+        v = w * torch.rsqrt(torch.dot(w, w) + eps)
+    av = A(v)
+    return torch.dot(v, av) / (torch.dot(v, v / invd) + eps)
+
+
+def make_chebyshev_precond(A, invd: torch.Tensor, lam_max, degree: int,
+                           lam_min_ratio: float = 1.0 / 30.0):
+    """Fixed SPD Chebyshev polynomial preconditioner ``z ~= A^-1 r``:
+    ``degree`` semi-iterations on the Jacobi-scaled system from a zero
+    guess, on ``[lam_min_ratio * lam_max, lam_max]`` (``degree`` - 1
+    applies per call).  Odd degrees only (an even one is raised by one):
+    for an eigenvalue above ``lam_max`` an odd polynomial stays positive,
+    an even one goes indefinite.  ``lam_max`` is padded by 5 % (the power
+    iteration's estimate is a lower bound)."""
+    if degree % 2 == 0:
+        degree += 1
+    lam_max = lam_max * 1.05
+    a = lam_min_ratio * lam_max
+    b = lam_max
+    theta = 0.5 * (b + a)
+    delta = 0.5 * (b - a)
+    sigma = theta / delta
+
+    def precond(r):
+        z = (1.0 / theta) * (invd * r)
+        d = z
+        rho = 1.0 / sigma
+        for _ in range(degree - 1):
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            d = (rho_new * rho) * d + (2.0 * rho_new / delta) * (invd * (r - A(z)))
+            z = z + d
+            rho = rho_new
+        return z
+
+    return precond
 
 
 def pcg_flat(apply_A, rhs: UField, x0: UField, diag: UField, tolerance: float,
-             max_iterations: int):
-    """Jacobi PCG with flat-vector state; ``apply_A`` maps grid dicts to
-    grid dicts.  Stops when ||r||_2 <= tol * ||b||_2 (Eigen's rule,
-    cpp:611-631).  Returns (x, iterations, relative residual, applies)."""
+             max_iterations: int, cheb_degree: int = 1, cancel_poll: int = 0):
+    """PCG with flat-vector state; ``apply_A`` maps grid dicts to grid
+    dicts.  Stops when ||r||_2 <= tol * ||b||_2 (Eigen's rule,
+    cpp:611-631).  ``cheb_degree > 1``: the degree-k Chebyshev
+    preconditioner on a power-iteration lam_max started from ``b``
+    (13 applies once), so a solve makes 13 + 1 + (k - 1) + iterations * k
+    applies; Jacobi makes 1 + iterations.  ``cancel_poll``: see
+    :func:`_flat_pcg`.  Returns (x, iterations, relative residual,
+    applies)."""
     shapes = {k: tuple(v.shape) for k, v in rhs.items()}
     pack, unpack = make_packer(shapes)
+    applies = 0
 
     def A(flat):
+        nonlocal applies
+        applies += 1
         return pack(apply_A(unpack(flat)))
 
     b = pack(rhs)
     invd = 1.0 / pack(diag)
     b_norm2 = torch.dot(b, b)
     threshold = tolerance * tolerance * b_norm2
-    x, iters, rr, applies = _flat_pcg(A, b, pack(x0), invd, threshold, max_iterations)
+    precond = None
+    if cheb_degree > 1:
+        lam = estimate_lambda_max(A, invd, b)
+        precond = make_chebyshev_precond(A, invd, lam, cheb_degree)
+    x, iters, rr = _flat_pcg(A, b, pack(x0), invd, threshold, max_iterations,
+                             precond=precond, cancel_poll=cancel_poll)
     rel = torch.sqrt(rr / b_norm2.clamp_min(1e-300))
     return unpack(x), iters, rel, applies
+
+
+def pcg_refined(apply_A_hi, apply_A_lo, rhs: UField, x0: UField, diag: UField,
+                tolerance: float, max_iterations: int, inner_tolerance: float = 1e-4,
+                max_outer: int = 40):
+    """Mixed precision: float32 Jacobi-CG inner solves of ``A d = r``
+    inside an iterative-refinement loop that forms ``r = b - A x`` in the
+    rhs's dtype, until ||r||_2 <= tol * ||b||_2 there, ``max_iterations``
+    inner iterations in all, or ``max_outer`` passes.  Each inner solve
+    stops at ``inner_tolerance`` relative to its own rhs.  ``apply_A_hi``
+    acts on rhs-dtype grid dicts, ``apply_A_lo`` on float32 ones.  Returns
+    (x, total inner iterations, relative residual, applies of both)."""
+    shapes = {k: tuple(v.shape) for k, v in rhs.items()}
+    pack, unpack = make_packer(shapes)
+    lo = torch.float32
+    applies = 0
+
+    def A_hi(flat):
+        nonlocal applies
+        applies += 1
+        return pack(apply_A_hi(unpack(flat)))
+
+    def A_lo(flat):
+        nonlocal applies
+        applies += 1
+        return pack(apply_A_lo(unpack(flat)))
+
+    b = pack(rhs)
+    x = pack(x0)
+    hi = b.dtype
+    invd_lo = (1.0 / pack(diag)).to(lo)
+    b_norm2 = torch.dot(b, b)
+    threshold = tolerance * tolerance * b_norm2
+    itol2 = torch.tensor(inner_tolerance, dtype=lo, device=b.device) ** 2
+    r = b - A_hi(x)
+    total = outer = 0
+    while bool(torch.dot(r, r) > threshold) and total < max_iterations and outer < max_outer:
+        r_lo = r.to(lo)
+        inner_threshold = itol2 * torch.dot(r_lo, r_lo)
+        d, it, _ = _flat_pcg(A_lo, r_lo, torch.zeros_like(r_lo), invd_lo, inner_threshold,
+                             max_iterations - total)
+        x = x + d.to(hi)
+        r = b - A_hi(x)
+        total += it
+        outer += 1
+    rel = torch.sqrt(torch.dot(r, r) / b_norm2.clamp_min(1e-300))
+    return unpack(x), total, rel, applies

@@ -4,7 +4,8 @@ The equivalent of HDK_AdaptiveViscosity::solveGasSubclass
 (reference Source/HDK_AdaptiveViscosity.cpp:126-710): from the liquid
 and solid SDFs, the MAC velocity, solid velocity, viscosity and density,
 build the octree, classify the DOFs, build the stress stencils, solve the
-SPD system with Jacobi PCG and write the result back to the uniform grid.
+SPD system with preconditioned CG and write the result back to the uniform
+grid.
 
 Stage names follow the reference's perf-monitor events (cpp:306-880), as in
 the JAX package.  PyTorch runs eagerly: the stages are plain function calls
@@ -17,7 +18,7 @@ import collections
 import contextlib
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,9 +60,11 @@ class SolveStats:
     active_cells: List[int]   # per level
     # which CG path ran: "cuda" (the hand-written kernels), "cuda-plain"
     # (the same canonical-box apply through the kernels' plain PyTorch
-    # version, on CPU tensors) or "v1" (the whole-array operator)
+    # version, on CPU tensors), "v1" / "v1-fused" (the whole-array
+    # operator) or "refined" (mixed-precision iterative refinement)
     solve_path: str = ""
-    applies: int = 0          # operator applies made by the CG
+    applies: int = 0          # operator applies made by the solve (both
+    # precisions under refinement; the lam_max estimate included)
     # [iterations, residual, octree_dofs, regular_dofs, counts..., boxes...]
     # of THIS frame's full-height octree occupancy (the JAX layout), fetched
     # with the stats when solve_viscosity gets ``probe_levels``, so that
@@ -182,6 +185,9 @@ class System:
     canons: Optional[list] = None
     modes: Optional[list] = None       # per-level route of the fused apply
     mask: Optional[torch.Tensor] = None   # the refinement mask the octree was built from
+    # stress blocks without weights at a given float dtype, rebuilt from the
+    # kind grids (what a "-fused" operator runs inside each apply)
+    rebuild_terms: Optional[Callable[[torch.dtype], list]] = None
 
 
 @dataclasses.dataclass
@@ -211,13 +217,25 @@ class Topology:
                              f"windows {self.windows}, not {res_per_level} and {windows}")
 
 
+def _cast_blocks(blocks, dtype) -> list:
+    """Stress blocks with every float tensor cast to ``dtype``."""
+    def c(x):
+        return None if x is None else x.to(dtype)
+
+    return [dataclasses.replace(
+        b, weight=c(b.weight), boundary=c(b.boundary),
+        terms=[dataclasses.replace(t, coeff=c(t.coeff)) for t in b.terms]) for b in blocks]
+
+
 def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *,
-                 device="cuda", bboxes=None, pad_levels=None,
+                 device="cuda", face_weights: Optional[Sequence[torch.Tensor]] = None,
+                 bboxes=None, pad_levels=None,
                  stage_times: Optional[Dict[str, float]] = None,
                  topology: Optional[Topology] = None) -> System:
     """Every stage of :func:`solve_viscosity` up to the CG: surface weights,
     octree, labels, stencils, restriction, and the system (operator, rhs,
-    Jacobi diagonal).  ``bboxes`` are per-level crop windows for the fused
+    Jacobi diagonal).  ``face_weights``: see :func:`solve_viscosity`.
+    ``bboxes`` are per-level crop windows for the fused
     apply (from :func:`probe_topology`).  The fused apply routes each level
     by the card's L2 budget (``fused_apply.level_modes`` with
     ``fused_apply.route_budget(device)``).  ``topology``: a
@@ -233,8 +251,13 @@ def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *
     levels = capped_levels(orig_res, config.octree_levels)
     lv_pad = levels if pad_levels is None else max(levels, capped_levels(orig_res, pad_levels))
     target = padded_shape(orig_res, lv_pad)
+    if face_weights is not None:
+        face_weights = [torch.as_tensor(w, device=device) for w in face_weights]
     if target != orig_res:
         state = _pad_state(state, target)
+        if face_weights is not None:
+            pads = tuple((0, int(t) - int(s)) for s, t in zip(orig_res, target))
+            face_weights = [pad_const(w, pads, 0) for w in face_weights]
     liquid, solid = state.liquid_sdf, state.solid_sdf
     if bboxes is not None and len(bboxes) != levels:
         raise ValueError(f"bboxes has {len(bboxes)} levels, solve has {levels}; "
@@ -243,8 +266,11 @@ def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *
     with clock("compute_surface_weights"):
         center_w, edge_w = fields.integration_weights(
             liquid, solid, config.num_supersamples, extrapolation, config.apply_solid_weights)
-        face_w = fields.face_weights(liquid, solid, config.num_supersamples,
-                                     extrapolation, config.apply_solid_weights)
+        if face_weights is None:
+            face_w = fields.face_weights(liquid, solid, config.num_supersamples,
+                                         extrapolation, config.apply_solid_weights)
+        else:
+            face_w = list(face_weights)
 
     with clock("build_octree"):
         inner_band = dx * max(2.0, float(config.fine_bandwidth))
@@ -287,18 +313,37 @@ def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *
         zero = torch.zeros((), dtype=sdtype, device=device)
         guess = {k: torch.where(active[k], guess_raw[k], zero) for k in active}
 
+    def rebuild_terms(dtype):
+        visc = state.viscosity.to(dtype)
+        sv = tuple(v.to(dtype) for v in state.solid_velocity)
+        return stencils.build_edge_stress_blocks(
+            labels, vel_kinds, edge_kinds, edge_w, visc, sv, dt, dx, config, with_weights=False,
+        ) + stencils.build_center_stress_blocks(
+            labels, vel_kinds, center_kinds, center_w, visc, sv, dt, dx, config,
+            with_weights=False,
+        )
+
     with clock("build_system"):
         v1_apply, diag = operator.make_operator(blocks, mass, active, res_per_level)
         rhs = operator.boundary_rhs(blocks, mass, guess, active, res_per_level)
         impl = config.apply_impl
         if impl == "auto":
             impl = "cuda" if device.type == "cuda" and sdtype == torch.float32 else "v1"
+        if config.use_iterative_refinement and impl not in ("v1", "v1-fused"):
+            # refinement drives whole-array applies in two precisions (the
+            # JAX package routes the same way, solver.py:328-330)
+            impl = "v1-fused"
         if impl == "cuda" and sdtype != torch.float32:
             raise ValueError("apply_impl='cuda' computes in float32; for a float64 solve "
-                             "use apply_impl='v1'")
+                             "use use_iterative_refinement=True (float32 inner CG, float64 "
+                             "residual) or apply_impl='v1'/'v1-fused'")
+        apply_A = v1_apply
+        if impl == "v1-fused":
+            apply_A, _ = operator.make_operator(blocks, mass, active, res_per_level,
+                                                terms_builder=lambda: rebuild_terms(sdtype))
         sys_ = System(state, orig_res, levels, impl, labels, vel_kinds, regular_kinds,
-                      res_per_level, active, v1_apply, v1_apply, rhs, guess, diag,
-                      blocks=blocks, mass=mass, mask=mask)
+                      res_per_level, active, apply_A, v1_apply, rhs, guess, diag,
+                      blocks=blocks, mass=mass, mask=mask, rebuild_terms=rebuild_terms)
         if impl == "cuda":
             topo = Topology() if topology is None else topology
             topo.fill(res_per_level, bboxes, device)
@@ -312,15 +357,17 @@ def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *
     return sys_
 
 
-def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig(), *,
+def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig(),
+                    face_weights: Optional[Sequence[torch.Tensor]] = None, *,
                     device="cuda", bboxes=None, pad_levels=None, probe_levels=None,
                     stage_times: Optional[Dict[str, float]] = None,
                     topology: Optional[Topology] = None) -> SolveResult:
     """One viscosity solve (the reference's per-frame solveGasSubclass).
 
-    ``device`` defaults to the card; the state is moved there.  The face
-    volume fractions are computed from the SDFs (the JAX package can also
-    take them from the host FLIP loop; not ported yet).  ``bboxes``:
+    ``device`` defaults to the card; the state is moved there.
+    ``face_weights``: the host FLIP loop's face volume fractions
+    ("surfaceweights", cpp:144), three face-sampled arrays of the state's
+    resolution; computed from the SDFs when omitted.  ``bboxes``:
     per-level crop windows for the fused apply (``make_solver`` supplies
     them).  ``pad_levels``: pad the domain for this many levels even if
     fewer are solved.  ``probe_levels``: also return this frame's
@@ -330,20 +377,31 @@ def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig()
     at each stage).  ``topology``: see :func:`build_system`."""
     device = torch.device(device)
     clock = _StageClock(stage_times, device)
-    sys_ = build_system(state, dt, config, device=device, bboxes=bboxes,
-                        pad_levels=pad_levels, stage_times=stage_times, topology=topology)
+    sys_ = build_system(state, dt, config, device=device, face_weights=face_weights,
+                        bboxes=bboxes, pad_levels=pad_levels, stage_times=stage_times,
+                        topology=topology)
     state, levels = sys_.state, sys_.levels
+    cg_options = dict(cheb_degree=config.cheb_degree, cancel_poll=config.cancel_poll_iters)
 
     with clock("solve"):
-        if sys_.impl == "cuda":
+        if config.use_iterative_refinement:
+            f32 = torch.float32
+            apply_A32, _ = operator.make_operator(
+                _cast_blocks(sys_.blocks, f32), {k: v.to(f32) for k, v in sys_.mass.items()},
+                sys_.active, sys_.res_per_level, terms_builder=lambda: sys_.rebuild_terms(f32))
+            solution, iters, rel, applies = operator.pcg_refined(
+                sys_.apply_A, apply_A32, sys_.rhs, sys_.guess, sys_.diag, config.tolerance,
+                config.max_iterations)
+        elif sys_.impl == "cuda":
             sol_c, iters, rel, applies = operator.pcg_flat(
                 sys_.apply_A, sys_.embed_tree(sys_.rhs), sys_.embed_tree(sys_.guess),
-                sys_.embed_tree(sys_.diag, fill=1.0), config.tolerance, config.max_iterations)
+                sys_.embed_tree(sys_.diag, fill=1.0), config.tolerance, config.max_iterations,
+                **cg_options)
             solution = sys_.crop_tree(sol_c)
         else:
             solution, iters, rel, applies = operator.pcg_flat(
                 sys_.apply_A, sys_.rhs, sys_.guess, sys_.diag, config.tolerance,
-                config.max_iterations)
+                config.max_iterations, **cg_options)
 
     with clock("interpolate_writeback"):
         interpolated = interpolator.interpolate_writeback_fields(
@@ -358,7 +416,9 @@ def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig()
             new_velocity = [v[tuple(slice(0, orig[d] + (1 if d == a else 0)) for d in range(3))]
                             for a, v in enumerate(new_velocity)]
 
-    if sys_.impl == "cuda":
+    if config.use_iterative_refinement:
+        path = "refined"
+    elif sys_.impl == "cuda":
         path = "cuda" if device.type == "cuda" else "cuda-plain"
     else:
         path = sys_.impl
@@ -539,8 +599,9 @@ def _contained(tight, used) -> bool:
 
 def make_solver(config: SolverConfig = SolverConfig(), *, auto_trim_levels: bool = True,
                 async_probe: bool = True, device="cuda"):
-    """Solve closure ``solve(state, dt, stage_times=None) -> SolveResult``
-    with the JAX make_solver's host policy.
+    """Solve closure ``solve(state, dt, face_weights=None, stage_times=None)
+    -> SolveResult`` with the JAX make_solver's host policy (the windows come
+    from the SDFs, never from ``face_weights``).
 
     ``auto_trim_levels`` (default on): trim empty top levels and crop the
     fused apply to per-level windows of the occupied region.  Windows carry
@@ -599,22 +660,25 @@ def make_solver(config: SolverConfig = SolverConfig(), *, auto_trim_levels: bool
         window_cache[lv] = windows
         return windows
 
-    def _dispatch(lv, tight, state, dt, pshape, stage_times):
+    def _dispatch(lv, tight, state, dt, face_weights, pshape, stage_times):
         cfg = config if lv == config.octree_levels else dataclasses.replace(
             config, octree_levels=lv)
         windows = _windows(lv, tight, [tuple(s >> l for s in pshape) for l in range(lv)])
         out = solve_viscosity(
-            state, dt, cfg, device=device, bboxes=windows, pad_levels=config.octree_levels,
+            state, dt, cfg, face_weights=face_weights, device=device, bboxes=windows,
+            pad_levels=config.octree_levels,
             probe_levels=config.octree_levels if async_probe else None,
             stage_times=stage_times, topology=_entry((lv, windows, async_probe, pshape)))
         return out, windows
 
-    def solve(state: FluidState, dt, stage_times: Optional[Dict[str, float]] = None):
+    def solve(state: FluidState, dt, face_weights=None,
+              stage_times: Optional[Dict[str, float]] = None):
         shape = tuple(state.liquid_sdf.shape)
         full = capped_levels(shape, config.octree_levels)
         pshape = padded_shape(shape, full)
         if not auto_trim_levels:
-            return solve_viscosity(state, dt, config, device=device, stage_times=stage_times,
+            return solve_viscosity(state, dt, config, face_weights=face_weights, device=device,
+                                   stage_times=stage_times,
                                    topology=_entry((config.octree_levels, None, False, pshape)))
         if carry.get("grid") != (pshape, state.dx):
             window_cache.clear()
@@ -626,7 +690,7 @@ def make_solver(config: SolverConfig = SolverConfig(), *, auto_trim_levels: bool
         else:
             with _StageClock(stage_times, device)("probe"):
                 lv, tight = probe_topology(state, config, device=device)
-        out, used = _dispatch(lv, tight, state, dt, pshape, stage_times)
+        out, used = _dispatch(lv, tight, state, dt, face_weights, pshape, stage_times)
         if not async_probe:
             return out
         _, lv2, tight2 = decode_topology_probe(out.stats.topology_probe, shape, full)
@@ -635,7 +699,7 @@ def make_solver(config: SolverConfig = SolverConfig(), *, auto_trim_levels: bool
             # the solved frame's occupancy escaped the windows it used (or
             # its trim changed): solve it again with its own probe, which
             # cannot escape
-            out, _ = _dispatch(lv2, tight2, state, dt, pshape, stage_times)
+            out, _ = _dispatch(lv2, tight2, state, dt, face_weights, pshape, stage_times)
         return out
 
     def cache_info():
@@ -644,3 +708,23 @@ def make_solver(config: SolverConfig = SolverConfig(), *, auto_trim_levels: bool
 
     solve.cache_info = cache_info
     return solve
+
+
+def octree_geometry_for_state(state: FluidState, config: SolverConfig = SolverConfig(),
+                              path: Optional[str] = None, *, device="cuda"):
+    """The octree debug geometry of a state, the analog of the reference's
+    ``doPrintOctree`` / ``octreeGeometry`` outputs (cpp:78-82, 283-294):
+    (positions, pscale, level) numpy arrays of the ACTIVE cells; also
+    writes a binary PLY (``native.export_octree_ply``) when ``path`` is
+    given."""
+    dx = state.dx
+    levels = capped_levels(tuple(state.liquid_sdf.shape), config.octree_levels)
+    mask = octree.build_refinement_mask(
+        state.liquid_sdf.to(device), state.solid_sdf.to(device), dx, config.extrapolation * dx,
+        3.0 * dx, dx * max(2.0, float(config.fine_bandwidth)))
+    labels = [l.cpu().numpy() for l in octree.build_octree(mask, levels)]
+    if path is not None:
+        from . import native
+
+        native.export_octree_ply(labels, dx, path)
+    return octree.octree_geometry(labels, dx)

@@ -22,7 +22,7 @@ import torch
 
 from . import classify, octree
 from .config import SolverConfig
-from .fields import _axis_lerp
+from .fields import _axis_lerp, cell_to_face_avg
 from .ops.arrayops import edge_shape, face_shape, fill_where, gather_offset, iota, pad_edge, upread
 
 FLUID = classify.FLUID
@@ -82,6 +82,18 @@ def sample_cell_field_at(field: torch.Tensor, level: int, kind: str, axis: int |
         idx[d] = slice(b, b + s * (m[d] - 1) + 1, s)
         out = h[tuple(idx)]
     return out
+
+
+def _face_avg_component(solid_velocity, comp_axis, face_axis, eshape, off):
+    """Solid-velocity component ``comp_axis`` at the centers of
+    ``face_axis`` faces (the MAC field averaged to cell centers along
+    ``comp_axis``, then to the faces), gathered onto the edge grid; only
+    the compat boundary reads it."""
+    sv = solid_velocity[comp_axis]
+    lo = tuple(slice(0, -1) if d == comp_axis else slice(None) for d in range(3))
+    hi = tuple(slice(1, None) if d == comp_axis else slice(None) for d in range(3))
+    x = 0.5 * (sv[lo] + sv[hi])
+    return gather_offset(cell_to_face_avg(x, face_axis), eshape, off)
 
 
 def _parity(shape, axis, even: bool, device):
@@ -179,10 +191,13 @@ def build_edge_stress_blocks(labels, vel_kinds, edge_kinds, edge_w0, viscosity,
                             terms.append(StressTerm("blocksum", f, level, offo, c5))
 
                     if level == 0:
-                        # the face-axis component of the solid velocity
-                        # (the JAX default; see its compat option, cpp:1901)
                         sb = (k == SOLIDBOUNDARY) & active_edge
-                        svc = gather_offset(solid_velocity[f], eshape, off)
+                        if config.compat_edge_boundary_component:
+                            # the reference's edge-axis component at the
+                            # face center (cpp:1901)
+                            svc = _face_avg_component(solid_velocity, a, f, eshape, off)
+                        else:
+                            svc = gather_offset(solid_velocity[f], eshape, off)
                         contrib = _where0(sb, 0.5 * base * svc)
                         boundary = contrib if boundary is None else boundary + contrib
 

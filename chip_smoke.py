@@ -74,6 +74,30 @@ Phases (one line each, elapsed seconds first):
                 against their plain versions (3e-5 * max; the floor also with
                 its int8 bytes counted); each kernel's time with the L2 flushed,
                 bytes, bound, share of bound, and copy_ of the same bytes
+  10 cheb    -- SolverConfig(octree_levels=4, tolerance=1e-4, cheb_degree=3)
+                through make_solver and the kernels on buckling-96 (cold + 3
+                warm frames) and buckling-192 (cold + 2): exact levels and
+                DOFs, residual <= 1e-4, applies = 13 + 1 + 2 + 3 per
+                iteration, launch counts around the cold frame against them,
+                the 96^3 iterations within +-2 of the JAX package's count
+                (EXPECT_CHEB) and its velocity within rel 5e-4 of phase 3's
+                float64 v1 solve, the 192^3 velocity within rel 5e-4 of
+                phase 5's Jacobi frame; warm median and spread, solve stage
+                ms, iterations and applies beside the Jacobi frames
+  11 refined -- scenes.buckling(N_REFINED) in float64 with
+                use_iterative_refinement (tolerance 1e-9): the "refined"
+                path, a float32 inner apply, residual <= 1e-9, velocity
+                within rel 1e-5 of the float64 v1 solve; a v1-fused float32
+                frame of buckling-32 against the v1 frame (same iterations,
+                velocity within 1e-6 * max)
+  12 tail    -- models.flip.simulate on buckling-64 (float32, 3 frames, the
+                kernels' route, launch counts against the frames' applies);
+                a buckling-96 frame with cancel_poll_iters=16 and the flag
+                set stops at 16 iterations, then converges; a checkpoint of
+                the FLIP state saved and loaded on the card; the native
+                octree checks on the 96^3 octree and its PLY; interp_at at
+                the 96^3 solution's UNASSIGNED level-0 faces against the
+                writeback interpolation (1e-6 * max)
 
 Phase 3 also runs the make_solver cache: a fresh solver's 3 frames of
 buckling-96 (only the first probes; one cached topology; the cold and cached
@@ -109,6 +133,16 @@ EXPECT = dict(levels=3, octree_dofs=186836, regular_dofs=284564, iterations=203)
 EXPECT_192 = dict(levels=4, octree_dofs=820288, regular_dofs=2209612, iterations=337)
 # the JAX package's record of beam-64 (BENCH_r04.json)
 EXPECT_BEAM = dict(levels=3, octree_dofs=22064, regular_dofs=32336, iterations=262)
+# the JAX package's outer CG iterations of the buckling-96 frame under the
+# degree-3 Chebyshev preconditioner (its v1-fused operator on a CPU, float32,
+# SolverConfig(octree_levels=4, tolerance=1e-4, cheb_degree=3), dt =
+# float32(1/24), make_solver), from
+#     PYTHONPATH=. JAX_PLATFORMS=cpu python tools/jax_chebyshev_counts.py 96
+# buckling-192 has no such count (the CPU run is too large); its Chebyshev
+# frame is held to the DOFs, the residual and phase 5's Jacobi velocity
+CHEB_DEGREE = 3
+EXPECT_CHEB = {96: 87}
+N_REFINED = 64
 _PA = "adaptiveviscositysolver_tpu/ops/pallas_apply.py"
 _FUSED = f"{_PA}:1359 (_make_fused_kernel, level 0) + :1447 (_make_merged_kernel, levels >= 1)"
 REPLACES = {
@@ -191,6 +225,44 @@ def trace_frame(solve, state, dt, path):
     device_events = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                      if e.get("cat") in DEVICE_CATS and "dur" in e]
     return res, spans, device_events
+
+
+def trace_summary(spans, events, stages, warm_ms):
+    """A traced frame's device busy time and idle share, per stage too, and
+    the CG stage's ten costliest device ops; the *_unprofiled shares divide
+    the traced device time by the unprofiled walls (the warm-frame median
+    ``warm_ms``, the synchronized ``stages``).  None where the trace holds
+    no device events."""
+    trace = {"frame_wall_ms": None, "frame_device_ms": None, "frame_idle_share": None,
+             "frame_idle_share_unprofiled": None, "cg_idle_share_unprofiled": None,
+             "stages": {}, "cg_top_ops": []}
+    if not events:
+        return trace
+    intervals = [(a, b) for a, b, _ in events]
+    lo, hi = spans["frame"]
+    busy = busy_us(intervals, lo, hi)
+    trace.update(frame_wall_ms=(hi - lo) / 1e3, frame_device_ms=busy / 1e3,
+                 frame_idle_share=1.0 - busy / (hi - lo))
+    for name in stages:
+        slo, shi = spans[name]
+        sb = busy_us(intervals, slo, shi)
+        trace["stages"][name] = {"wall_ms": (shi - slo) / 1e3, "device_ms": sb / 1e3,
+                                 "idle_share": 1.0 - sb / max(shi - slo, 1e-9),
+                                 "device_ops": sum(1 for a, _, _ in events if slo <= a < shi)}
+    slo, shi = spans["solve"]
+    per_op = {}
+    for a, b, name in events:
+        if slo <= a < shi:
+            key = name if len(name) <= 60 else name[:57] + "..."
+            n, t_us = per_op.get(key, (0, 0.0))
+            per_op[key] = (n + 1, t_us + (b - a))
+    trace["cg_top_ops"] = [
+        {"op": k, "launches": n, "device_ms": t_us / 1e3}
+        for k, (n, t_us) in sorted(per_op.items(), key=lambda kv: -kv[1][1])[:10]]
+    trace["frame_idle_share_unprofiled"] = 1.0 - busy / 1e3 / warm_ms
+    trace["cg_idle_share_unprofiled"] = (1.0 - trace["stages"]["solve"]["device_ms"]
+                                         / (stages["solve"] * 1e3))
+    return trace
 
 
 def ptxas_info(log, kernel):
@@ -595,35 +667,11 @@ def main():
     # the profiler slows the host about 2x, so idle shares under it overstate
     # the unprofiled run's; the *_unprofiled shares divide the traced device
     # time by the unprofiled walls (warm-frame median, synchronized CG stage)
-    trace = {"frame_wall_ms": None, "frame_device_ms": None, "frame_idle_share": None,
-             "frame_idle_share_unprofiled": None, "cg_idle_share_unprofiled": None,
-             "stages": {}, "cg_top_ops": []}
+    trace = trace_summary(spans, events, stages, statistics.median(warm))
     if not events:
         log("trace", "the trace holds no device events: device idle share not measured")
     else:
-        lo, hi = spans["frame"]
-        busy = busy_us([(a, b) for a, b, _ in events], lo, hi)
-        trace.update(frame_wall_ms=(hi - lo) / 1e3, frame_device_ms=busy / 1e3,
-                     frame_idle_share=1.0 - busy / (hi - lo))
-        for name in stages:
-            slo, shi = spans[name]
-            sb = busy_us([(a, b) for a, b, _ in events], slo, shi)
-            trace["stages"][name] = {"wall_ms": (shi - slo) / 1e3, "device_ms": sb / 1e3,
-                                     "idle_share": 1.0 - sb / max(shi - slo, 1e-9),
-                                     "device_ops": sum(1 for a, _, _ in events if slo <= a < shi)}
-        slo, shi = spans["solve"]
-        per_op = {}
-        for a, b, name in events:
-            if slo <= a < shi:
-                key = name if len(name) <= 60 else name[:57] + "..."
-                n, t_us = per_op.get(key, (0, 0.0))
-                per_op[key] = (n + 1, t_us + (b - a))
-        trace["cg_top_ops"] = [
-            {"op": k, "launches": n, "device_ms": t_us / 1e3}
-            for k, (n, t_us) in sorted(per_op.items(), key=lambda kv: -kv[1][1])[:10]]
         cg = trace["stages"]["solve"]
-        trace["frame_idle_share_unprofiled"] = 1.0 - busy / 1e3 / statistics.median(warm)
-        trace["cg_idle_share_unprofiled"] = 1.0 - cg["device_ms"] / (stages["solve"] * 1e3)
         log("trace", f"frame {trace['frame_wall_ms']:.2f} ms wall under the profiler, device busy "
                      f"{trace['frame_device_ms']:.2f} ms, idle share {trace['frame_idle_share']:.3f} "
                      f"| CG stage {cg['wall_ms']:.2f} ms wall, {cg['device_ms']:.2f} ms device, "
@@ -688,6 +736,7 @@ def main():
     assert st.solve_path == "cuda" and want96.stats.solve_path == "v1"
     assert abs(st.iterations - want96.stats.iterations) <= 2
     assert diff96 / scale96 < 5e-4
+    v96_f64 = want96.velocity
     del want96
 
     # ---- 5 buckling-192: the large-grid path through make_solver
@@ -815,6 +864,7 @@ def main():
                f"{l0_routed[0]:.4f} + dt_level {l0_routed[1]:.4f} ms, split tau_level "
                f"{l0_split[0]:.4f} + dt_level {l0_split[1]:.4f} ms, fused_tau {l0_fused[0]:.4f} "
                f"+ fused_dt {l0_fused[1]:.4f} ms | {smi}")
+    v192_jacobi = res2.velocity
     del sys2, apply_f, args2, u2, u2_log, res2, r
 
     # ---- 6 buckling-256: default routes against every level fused
@@ -1048,6 +1098,276 @@ def main():
                       f"{err[name][0]:.3e} (rel {err[name][1]:.2e}) | {smi}")
     del sys96, u96, fl_in, u_t1, c_t1, src, dst
 
+    # ---- 10 Chebyshev (degree 3) through the kernels, beside the Jacobi frames
+    from adaptiveviscositysolver_tpu_torch import operator as port_operator
+
+    cfg_cheb = SolverConfig(octree_levels=4, tolerance=1e-4, cheb_degree=CHEB_DEGREE)
+    k = CHEB_DEGREE
+    cheb = {}
+    for n_c, st_c, expect, n_warm, v_ref, (jac_warm, jac_solve, jac) in (
+            (N, state, EXPECT, 3, v96_f64, (warm, stages["solve"], st)),
+            (n2, st2, EXPECT_192, 2, v192_jacobi, (warm2, stages2["solve"], st_2))):
+        solve_k = solver.make_solver(cfg_cheb, device=dev)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t = time.perf_counter()
+        rk = solve_k(st_c, dt)
+        for v in rk.velocity:
+            v.sum().item()
+        cold_k = time.perf_counter() - t
+        launches_k = dict(fa.launch_counts)
+        sk = rk.stats
+        ((lv_k, win_k),) = solve_k.cache_info()["windows"].items()
+        pshape_k = solver.padded_shape(tuple(st_c.liquid_sdf.shape), 4)
+        canons_k = fa.level_canons([tuple(s >> l for s in pshape_k) for l in range(lv_k)], win_k)
+        modes_k = fa.level_modes(canons_k, fa.route_budget(dev))
+        log("cheb", f"{n_c}^3 cold frame {cold_k:.3f} s: {sk} | launches {launches_k} | routes "
+                    f"{modes_k}")
+        assert sk.solve_path == "cuda", sk.solve_path
+        assert len(sk.active_cells) == expect["levels"], sk.active_cells
+        assert (sk.octree_dofs, sk.regular_dofs) == (expect["octree_dofs"],
+                                                     expect["regular_dofs"]), sk
+        assert sk.residual <= 1e-4, sk.residual
+        assert sk.applies == 13 + 1 + (k - 1) + k * sk.iterations, (sk.applies, sk.iterations)
+        check_launches(launches_k, sk.applies, canons_k, modes_k, f"cheb {n_c}")
+        if n_c in EXPECT_CHEB:
+            assert abs(sk.iterations - EXPECT_CHEB[n_c]) <= 2, (sk.iterations, EXPECT_CHEB[n_c])
+        scale_k = max(float(v.abs().max()) for v in v_ref)
+        rel_k = max(float((g.double() - w.double()).abs().max())
+                    for g, w in zip(rk.velocity, v_ref)) / scale_k
+        for a, v in enumerate(rk.velocity):
+            assert tuple(v.shape) == tuple(n_c + (1 if d == a else 0) for d in range(3)), v.shape
+            assert bool(torch.isfinite(v).all()), f"cheb {n_c}: velocity {a} not finite"
+        assert rel_k < 5e-4, (n_c, rel_k)
+        warm_k = []
+        for _ in range(n_warm):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            r = solve_k(st_c, dt)
+            stop.record()
+            torch.cuda.synchronize()
+            warm_k.append(start.elapsed_time(stop))
+            assert r.stats.iterations == sk.iterations
+        stages_k = {}
+        solve_k(st_c, dt, stage_times=stages_k)
+        trace_k = None
+        if n_c == N:
+            # one more warm frame under the profiler, as phase 4 traces Jacobi's
+            r, spans, events = trace_frame(solve_k, st_c, dt,
+                                           trace_path.with_name("cheb_warm_frame.json"))
+            assert r.stats.iterations == sk.iterations
+            trace_k = trace_summary(spans, events, stages_k, statistics.median(warm_k))
+            if events:
+                cg_k = trace_k["stages"]["solve"]
+                log("cheb", f"{n_c}^3 traced frame: {trace_k['frame_wall_ms']:.2f} ms wall under "
+                            f"the profiler, device busy {trace_k['frame_device_ms']:.2f} ms | CG "
+                            f"stage {cg_k['wall_ms']:.2f} ms wall, {cg_k['device_ms']:.2f} ms "
+                            f"device, {cg_k['device_ops'] / sk.iterations:.1f} device ops per "
+                            f"iteration, {cg_k['device_ops'] / sk.applies:.1f} per apply | "
+                            f"against the unprofiled walls: frame idle share "
+                            f"{trace_k['frame_idle_share_unprofiled']:.3f}, CG "
+                            f"{trace_k['cg_idle_share_unprofiled']:.3f} | top CG ops "
+                            + "; ".join(f"{o['op']} {o['launches']} x {o['device_ms']:.2f} ms"
+                                        for o in trace_k["cg_top_ops"][:5]))
+            else:
+                log("cheb", "the trace holds no device events: device idle share not measured")
+        lam = None
+        if n_c == n2:
+            # the lam_max estimate behind the preconditioner: 12 power
+            # iterations from b (the solve's) against 60, on the default
+            # routes and with every level fused
+            sys_d = solver.build_system(st_c, dt, SolverConfig(octree_levels=lv_k, tolerance=1e-4),
+                                        device=dev, bboxes=win_k, pad_levels=4)
+            b_t = sys_d.embed_tree(sys_d.rhs)
+            pack, unpack = port_operator.make_packer({kk: tuple(v.shape) for kk, v in b_t.items()})
+            b_f = pack(b_t)
+            invd = 1.0 / pack(sys_d.embed_tree(sys_d.diag, fill=1.0))
+            fused_d = ["fused"] * lv_k
+            apply_fd, _, _ = fa.make_fused_operator(
+                sys_d.frame, fa.route_canons(sys_d.canons, fused_d), sys_d.active,
+                sys_d.res_per_level, st_c.dx, enh, modes=fused_d)
+            lam = {}
+            for name_d, op_d, iters_d in (("routes_12", sys_d.apply_A, 12),
+                                          ("fused_12", apply_fd, 12),
+                                          ("routes_60", sys_d.apply_A, 60)):
+                lam[name_d] = float(port_operator.estimate_lambda_max(
+                    lambda f, op_d=op_d: pack(op_d(unpack(f))), invd, b_f, iters=iters_d))
+            log("cheb", f"{n_c}^3 lam_max estimate from b: 12 power iterations "
+                        f"{lam['routes_12']:.6f} (every level fused {lam['fused_12']:.6f}), "
+                        f"60 iterations "
+                        f"{lam['routes_60']:.6f}")
+            del sys_d, b_t, b_f, invd, apply_fd
+        cheb[n_c] = {"trace": trace_k, "lam_max": lam, "cold_frame_s": cold_k,
+                     "warm_frame_ms": warm_k,
+                     "warm_frame_ms_median": statistics.median(warm_k),
+                     "solve_stage_ms": stages_k["solve"] * 1e3, "cg_iterations": sk.iterations,
+                     "applies": sk.applies, "residual": sk.residual, "velocity_rel": rel_k,
+                     "jacobi": {"warm_frame_ms": jac_warm,
+                                "warm_frame_ms_median": statistics.median(jac_warm),
+                                "solve_stage_ms": jac_solve * 1e3,
+                                "cg_iterations": jac.iterations, "applies": jac.applies}}
+        log("cheb", f"{n_c}^3 Jacobi: warm {['%.2f' % w for w in jac_warm]} ms (median "
+                    f"{statistics.median(jac_warm):.2f}, spread {min(jac_warm):.2f}-"
+                    f"{max(jac_warm):.2f}), solve stage {jac_solve * 1e3:.2f} ms, "
+                    f"{jac.iterations} iterations, {jac.applies} applies | Chebyshev degree {k}: "
+                    f"warm {['%.2f' % w for w in warm_k]} ms (median "
+                    f"{statistics.median(warm_k):.2f}, spread {min(warm_k):.2f}-"
+                    f"{max(warm_k):.2f}), solve stage {stages_k['solve'] * 1e3:.2f} ms, "
+                    f"{sk.iterations} iterations (JAX {EXPECT_CHEB.get(n_c, 'not run')}), "
+                    f"{sk.applies} applies; velocity vs "
+                    f"{'float64 v1' if n_c == N else 'the Jacobi frame'} {rel_k:.2e} | {smi}")
+        del solve_k, rk, r
+    del v192_jacobi
+
+    # ---- 11 iterative refinement (float64), and the v1-fused operator
+    st_r = scenes.buckling(n=N_REFINED, dtype=torch.float64, device=dev)
+    cfg_r = SolverConfig(octree_levels=4, tolerance=1e-9)
+    inner = set()
+    pcg_refined = port_operator.pcg_refined
+
+    def pcg_refined_checked(hi, lo, *a, **kw):
+        def lo_checked(u):
+            inner.update(v.dtype for v in u.values())
+            return lo(u)
+        return pcg_refined(hi, lo_checked, *a, **kw)
+
+    port_operator.pcg_refined = pcg_refined_checked
+    try:
+        t = time.perf_counter()
+        rr = solver.solve_viscosity(st_r, dt, dataclasses.replace(
+            cfg_r, use_iterative_refinement=True), device=dev)
+        refined_s = time.perf_counter() - t
+    finally:
+        port_operator.pcg_refined = pcg_refined
+    t = time.perf_counter()
+    rv = solver.solve_viscosity(st_r, dt, cfg_r, device=dev)
+    v1_r_s = time.perf_counter() - t
+    scale_r = max(float(v.abs().max()) for v in rv.velocity)
+    rel_r = max(float((a - b).abs().max()) for a, b in zip(rr.velocity, rv.velocity)) / scale_r
+    log("refined", f"buckling-{N_REFINED} float64: refined {refined_s:.2f} s, {rr.stats} | v1 "
+                   f"{v1_r_s:.2f} s, {rv.stats.iterations} iterations, residual "
+                   f"{rv.stats.residual:.3e} | inner apply dtypes {sorted(map(str, inner))}; "
+                   f"velocity refined vs v1 {rel_r:.2e} of max | {smi}")
+    assert rr.stats.solve_path == "refined" and rv.stats.solve_path == "v1"
+    assert inner == {torch.float32}, inner
+    assert rr.stats.residual <= 1e-9 and rv.stats.residual <= 1e-9
+    assert rel_r < 1e-5, rel_r
+    del st_r, rr, rv
+    st32 = scenes.buckling(n=32, device=dev)
+    cfg_f = SolverConfig(octree_levels=4, tolerance=1e-4, apply_impl="v1-fused")
+    t = time.perf_counter()
+    rfu = solver.solve_viscosity(st32, dt, cfg_f, device=dev)
+    fused_s = time.perf_counter() - t
+    t = time.perf_counter()
+    rv1 = solver.solve_viscosity(st32, dt, dataclasses.replace(cfg_f, apply_impl="v1"),
+                                 device=dev)
+    v1_s = time.perf_counter() - t
+    scale_f = max(float(v.abs().max()) for v in rv1.velocity)
+    diff_f = max(float((a - b).abs().max()) for a, b in zip(rfu.velocity, rv1.velocity))
+    log("refined", f"buckling-32 float32: v1-fused {fused_s:.2f} s, {rfu.stats.iterations} "
+                   f"iterations; v1 {v1_s:.2f} s, {rv1.stats.iterations} iterations; velocity "
+                   f"diff {diff_f / scale_f:.2e} of max")
+    assert rfu.stats.solve_path == "v1-fused" and rv1.stats.solve_path == "v1"
+    assert rfu.stats.iterations == rv1.stats.iterations
+    assert diff_f <= 1e-6 * scale_f, diff_f / scale_f
+    del st32, rfu, rv1
+
+    # ---- 12 the tail: FLIP loop, cancellation, checkpoint, native checks, interp_at
+    from adaptiveviscositysolver_tpu_torch import interpolator, native, octree
+    from adaptiveviscositysolver_tpu_torch.classify import UNASSIGNED
+    from adaptiveviscositysolver_tpu_torch.models import flip
+    from adaptiveviscositysolver_tpu_torch.utils import cancel, checkpoint
+
+    n_f = 64
+    cfg_flip = SolverConfig(octree_levels=4, tolerance=1e-4)
+    canons_f = fa.level_canons([tuple(n_f >> l for _ in range(3)) for l in range(4)])
+    modes_f = fa.level_modes(canons_f, fa.route_budget(dev))
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t = time.perf_counter()
+    flip_out, flip_stats = flip.simulate(scenes.buckling(n=n_f, device=dev), 3, dt, cfg_flip,
+                                         device=dev)
+    torch.cuda.synchronize()
+    flip_s = time.perf_counter() - t
+    launches_f = dict(fa.launch_counts)
+    vy = float(flip_out.velocity[1].mean())
+    log("tail", f"FLIP buckling-{n_f}, 3 frames in {flip_s:.2f} s: "
+                + "; ".join(f"{s.solve_path} {s.iterations} it residual {s.residual:.2e}"
+                            for s in flip_stats)
+                + f" | launches {launches_f} | mean vertical velocity {vy:.4f}")
+    for s_f in flip_stats:
+        assert s_f.solve_path == "cuda" and s_f.residual <= 1e-4, s_f
+    assert all(bool(torch.isfinite(v).all()) for v in flip_out.velocity)
+    assert vy < 0.0, vy
+    check_launches(launches_f, sum(s_f.applies for s_f in flip_stats), canons_f, modes_f, "flip")
+
+    solve_x = solver.make_solver(dataclasses.replace(cfg, cancel_poll_iters=16), device=dev)
+    cancel.request()
+    try:
+        rx = solve_x(state, dt)
+    finally:
+        cancel.clear()
+    rx2 = solve_x(state, dt)
+    log("tail", f"cancel: flag set {rx.stats.iterations} iterations, residual "
+                f"{rx.stats.residual:.3e}; cleared {rx2.stats.iterations} iterations, residual "
+                f"{rx2.stats.residual:.3e}")
+    assert rx.stats.iterations == 16 and rx.stats.residual > 1e-4, rx.stats
+    assert rx2.stats.residual <= 1e-4 and abs(rx2.stats.iterations - st.iterations) <= 2
+    del solve_x, rx, rx2
+
+    tail_dir = Path(_build.BUILD_DIR).parent / "tail"
+    tail_dir.mkdir(parents=True, exist_ok=True)
+    checkpoint.save(str(tail_dir / "flip_state"), flip_out, step=3)
+    loaded, step = checkpoint.load(str(tail_dir / "flip_state"), device=dev)
+    assert step == 3 and loaded.dx == flip_out.dx
+    for f in ("liquid_sdf", "solid_sdf", "viscosity", "density"):
+        assert torch.equal(getattr(loaded, f), getattr(flip_out, f)), f
+    for a in range(3):
+        assert torch.equal(loaded.velocity[a], flip_out.velocity[a])
+        assert torch.equal(loaded.solid_velocity[a], flip_out.solid_velocity[a])
+    del flip_out, loaded
+
+    dx96 = state.dx
+    mask96 = octree.build_refinement_mask(state.liquid_sdf, state.solid_sdf, dx96,
+                                          cfg.extrapolation * dx96, 3.0 * dx96,
+                                          dx96 * max(2.0, float(cfg.fine_bandwidth)))
+    labels96 = octree.build_octree(mask96, 4)
+    t = time.perf_counter()
+    fails = native.check_octree_invariants(labels96)
+    native_s = time.perf_counter() - t
+    ply = tail_dir / "buckling96_octree.ply"
+    pos96, _, _ = solver.octree_geometry_for_state(state, cfg, str(ply), device=dev)
+    n_active = int(octree.active_cell_counts(labels96).sum())
+    log("tail", f"native: invariants of the {N}^3 octree {fails} ({native_s:.2f} s, build "
+                f"included); PLY {ply.stat().st_size} B, {len(pos96)} points")
+    assert fails == [], fails
+    assert len(pos96) == n_active > 0
+    assert f"element vertex {n_active}\n".encode() in ply.read_bytes()[:200]
+
+    sys96 = solver.build_system(state, dt, cfg_lv, device=dev, bboxes=windows, pad_levels=4)
+    sol_c, _, _, _ = port_operator.pcg_flat(
+        sys96.apply_A, sys96.embed_tree(sys96.rhs), sys96.embed_tree(sys96.guess),
+        sys96.embed_tree(sys96.diag, fill=1.0), cfg.tolerance, cfg.max_iterations)
+    u96 = sys96.crop_tree(sol_c)
+    dense = interpolator.interpolate_writeback_fields(sys96.labels, u96, sys96.vel_kinds,
+                                                      sys96.levels)
+    query = interpolator.make_point_interpolator(sys96.labels, u96, sys96.vel_kinds)
+    interp_rel, n_pts, interp_ms = 0.0, 0, 0.0
+    for a in range(3):
+        sel = sys96.vel_kinds[0][a] == UNASSIGNED
+        pts = torch.nonzero(sel).float() + torch.tensor([0.0 if d == a else 0.5 for d in range(3)],
+                                                        device=dev)
+        got_i = query(pts, a)
+        scale_i = max(float(dense[a].abs().max()), 1e-30)
+        interp_rel = max(interp_rel, float((got_i - dense[a][sel]).abs().max()) / scale_i)
+        n_pts += len(pts)
+        interp_ms += cuda_ms(lambda: query(pts, a), 3)
+    log("tail", f"interp_at at {n_pts} UNASSIGNED level-0 faces of the {N}^3 solution: "
+                f"{interp_rel:.2e} of max from the writeback interpolation, {interp_ms:.2f} ms "
+                f"for the three axes | {smi}")
+    assert n_pts > 0 and interp_rel <= 1e-6, (n_pts, interp_rel)
+    del sys96, u96, dense, sol_c
+
     measured = {
         "fused_tau": (launches["fused_tau"], err["fused_tau"][0], tau_ms, tau_plain_ms,
                       lib_tau_ms),
@@ -1100,6 +1420,11 @@ def main():
         "policy": {"programs": [info_a["programs"], info_s["programs"]],
                    "async_vs_sync_rel": ball_rel, "drain_volumes": [peak] + vols},
         "probes": probe_rows,
+        "cheb": cheb,
+        "refined": {"n": N_REFINED, "refined_s": refined_s, "v1_s": v1_r_s, "rel": rel_r,
+                    "v1_fused_s": fused_s, "v1_s_32": v1_s},
+        "tail": {"flip_s": flip_s, "flip_iterations": [s_f.iterations for s_f in flip_stats],
+                 "interp_rel": interp_rel, "interp_points": n_pts, "interp_ms": interp_ms},
         "wall_s": time.perf_counter() - T0}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

@@ -1,8 +1,9 @@
 """The port's per-level kernels on a CUDA card (tau_level, dt_level), the
 all-level kernels (fused_tau, fused_dt) and its probe kernels (banded_apply,
 stream_floor) against their plain versions, a
-routed solve on the card against the same solve on the CPU, and make_solver's
-cached topology on the card against fresh solves.
+routed solve, a Chebyshev solve and two FLIP frames on the card against the
+same on the CPU, and make_solver's cached topology on the card against
+fresh solves.
 
 Nothing here imports JAX, so this file also runs on a machine that has a
 card and no JAX; there the suite's conftest (which sets JAX up) is left out:
@@ -278,3 +279,47 @@ def test_cached_make_solver_on_card_matches_fresh_solves():
         scale = max(float(v.abs().max()) for v in want.velocity)
         for a in range(3):
             assert float((res.velocity[a] - want.velocity[a]).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.gpu
+def test_chebyshev_solve_on_card_matches_cpu():
+    """cheb_degree=3 through the kernels on buckling-32 against the same
+    solve through their plain version on the CPU: the fused pair launched
+    once per apply (13 + 1 + 2 + 3 per iteration), iterations within +-2,
+    velocity within rel 5e-4."""
+    _need_card()
+    state = scenes.buckling(n=32, device="cpu")
+    cfg = SolverConfig(octree_levels=3, tolerance=1e-5, apply_impl="cuda", cheb_degree=3)
+    fa.reset_launch_counts()
+    got = solver.solve_viscosity(state, DT, cfg, device="cuda")
+    assert got.stats.solve_path == "cuda"
+    assert got.stats.applies == 13 + 1 + 2 + 3 * got.stats.iterations
+    assert fa.launch_counts["fused_tau"] == fa.launch_counts["fused_dt"] == got.stats.applies
+    want = solver.solve_viscosity(state, DT, cfg, device="cpu")
+    assert abs(got.stats.iterations - want.stats.iterations) <= 2
+    assert got.stats.residual <= 1e-5
+    scale = max(float(v.abs().max()) for v in want.velocity)
+    for a in range(3):
+        assert float((got.velocity[a].cpu() - want.velocity[a]).abs().max()) / scale < 5e-4
+
+
+@pytest.mark.gpu
+def test_flip_loop_on_card_matches_cpu():
+    """Two FLIP frames of buckling-32 on the card (the kernels' route)
+    against the same frames on the CPU: every frame "cuda", iterations
+    within +-2, velocity within rel 5e-4, the column falling."""
+    from adaptiveviscositysolver_tpu_torch.models import flip
+
+    _need_card()
+    cfg = SolverConfig(octree_levels=3, tolerance=1e-5)
+    got, stats = flip.simulate(scenes.buckling(n=32, device="cuda"), 2, DT, cfg, device="cuda")
+    want, want_stats = flip.simulate(scenes.buckling(n=32, device="cpu"), 2, DT,
+                                     dataclasses.replace(cfg, apply_impl="cuda"), device="cpu")
+    for st, ws in zip(stats, want_stats):
+        assert st.solve_path == "cuda" and st.residual <= 1e-5
+        assert abs(st.iterations - ws.iterations) <= 2
+    scale = max(float(v.abs().max()) for v in want.velocity)
+    for a in range(3):
+        assert got.velocity[a].is_cuda
+        assert float((got.velocity[a].cpu() - want.velocity[a]).abs().max()) / scale < 5e-4
+    assert float(got.velocity[1].mean()) < 0.0
