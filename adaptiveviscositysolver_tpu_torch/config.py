@@ -54,18 +54,22 @@ class SolverConfig:
     dtype: Optional[torch.dtype] = None
 
     # Matvec implementation:
-    #   "auto" -- "cuda" for float32 fields on a CUDA device, else "v1"
+    #   "auto" -- "cuda" for float32 fields (or under refinement) on a
+    #             CUDA device, else "v1"
     #   "cuda" -- the canonical-box fused apply (ops/fused_apply.py): the
     #             hand-written CUDA kernels on a CUDA device, their plain
-    #             PyTorch version on CPU tensors.  float32 only.
+    #             PyTorch version on CPU tensors.  float32 only, or the
+    #             float32 inner apply of a refined solve.
     #   "v1"   -- whole-array PyTorch operator with materialized
     #             coefficients (operator.make_operator), any dtype
-    #   "v1-fused" -- "v1" with the coefficients rebuilt inside every apply
+    #   "v1-fused" -- accepted for the JAX package's configurations; runs
+    #             the "v1" operator (the same numbers) and reports "v1-fused"
     apply_impl: str = "auto"
 
     # Mixed precision: a float32 inner CG inside an iterative-refinement
-    # loop whose residual is formed in the input dtype
-    # (operator.pcg_refined); the solve then runs "v1-fused".
+    # loop whose residual is formed in the input dtype by the "v1" operator
+    # (operator.pcg_refined); the inner apply is "cuda"'s when the impl
+    # resolves to "cuda", else "v1"'s in float32.
     use_iterative_refinement: bool = False
 
     @property

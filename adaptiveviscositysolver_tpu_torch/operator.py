@@ -93,21 +93,14 @@ def _masked(active: torch.Tensor, value: torch.Tensor, fill: float) -> torch.Ten
 
 
 def make_operator(blocks: Sequence[StressBlock], mass: UField, active: UField,
-                  res_per_level,
-                  terms_builder: Optional[Callable[[], Sequence[StressBlock]]] = None):
+                  res_per_level):
     """Return (apply_A, diag): the SPD matvec and its Jacobi diagonal.
-    ``active`` are boolean FLUID masks per (level, axis).
-
-    ``terms_builder``: a zero-argument callable returning blocks parallel to
-    ``blocks`` whose terms every apply uses in place of ``blocks``'s (the
-    weights stay ``blocks``'s): the "v1-fused" operator rebuilds its
-    coefficients from the int8 kind grids inside each apply."""
+    ``active`` are boolean FLUID masks per (level, axis)."""
 
     def apply_A(u: UField) -> UField:
-        work = terms_builder() if terms_builder is not None else blocks
-        taus = apply_D(work, u, res_per_level)
+        taus = apply_D(blocks, u, res_per_level)
         taus = [b.weight * t for b, t in zip(blocks, taus)]
-        out = apply_DT(work, taus, u, res_per_level)
+        out = apply_DT(blocks, taus, u, res_per_level)
         return {k: _masked(active[k], out[k] + mass[k] * u[k], 0.0) for k in u}
 
     diag = {k: torch.zeros_like(v) for k, v in mass.items()}
@@ -131,43 +124,8 @@ def boundary_rhs(blocks: Sequence[StressBlock], mass: UField, guess: UField,
 
 
 # ---------------------------------------------------------------------------
-# CG over grid dicts, and over one flat vector
+# CG over one flat vector
 # ---------------------------------------------------------------------------
-
-
-def tree_dot(x: UField, y: UField) -> torch.Tensor:
-    return sum(torch.sum(x[k] * y[k]) for k in x)
-
-
-def tree_axpy(a, x: UField, y: UField) -> UField:
-    return {k: a * x[k] + y[k] for k in x}
-
-
-def pcg(apply_A, rhs: UField, x0: UField, diag: UField, tolerance: float,
-        max_iterations: int):
-    """Jacobi PCG over grid dicts, Eigen's stopping rule ||r||_2 <= tol *
-    ||b||_2 (cpp:611-631), tested before each iteration at one host read.
-    Returns (x, iterations, relative residual, applies)."""
-    inv_diag = {k: 1.0 / diag[k] for k in diag}
-    b_norm2 = tree_dot(rhs, rhs)
-    threshold = tolerance * tolerance * b_norm2
-    r = {k: rhs[k] - v for k, v in apply_A(x0).items()}
-    z = {k: inv_diag[k] * r[k] for k in r}
-    rz = tree_dot(r, z)
-    x, p = x0, z
-    it = 0
-    while it < max_iterations and bool(tree_dot(r, r) > threshold):
-        ap = apply_A(p)
-        alpha = rz / tree_dot(p, ap)
-        x = tree_axpy(alpha, p, x)
-        r = tree_axpy(-alpha, ap, r)
-        z = {k: inv_diag[k] * r[k] for k in r}
-        rz_new = tree_dot(r, z)
-        p = tree_axpy(rz_new / rz, p, z)
-        rz = rz_new
-        it += 1
-    rel = torch.sqrt(tree_dot(r, r) / b_norm2.clamp_min(1e-300))
-    return x, it, rel, it + 1
 
 
 def make_packer(shapes: Dict[Tuple[int, int], Tuple[int, int, int]]):

@@ -18,7 +18,7 @@ import collections
 import contextlib
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -185,9 +185,6 @@ class System:
     canons: Optional[list] = None
     modes: Optional[list] = None       # per-level route of the fused apply
     mask: Optional[torch.Tensor] = None   # the refinement mask the octree was built from
-    # stress blocks without weights at a given float dtype, rebuilt from the
-    # kind grids (what a "-fused" operator runs inside each apply)
-    rebuild_terms: Optional[Callable[[torch.dtype], list]] = None
 
 
 @dataclasses.dataclass
@@ -313,37 +310,23 @@ def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *
         zero = torch.zeros((), dtype=sdtype, device=device)
         guess = {k: torch.where(active[k], guess_raw[k], zero) for k in active}
 
-    def rebuild_terms(dtype):
-        visc = state.viscosity.to(dtype)
-        sv = tuple(v.to(dtype) for v in state.solid_velocity)
-        return stencils.build_edge_stress_blocks(
-            labels, vel_kinds, edge_kinds, edge_w, visc, sv, dt, dx, config, with_weights=False,
-        ) + stencils.build_center_stress_blocks(
-            labels, vel_kinds, center_kinds, center_w, visc, sv, dt, dx, config,
-            with_weights=False,
-        )
-
     with clock("build_system"):
         v1_apply, diag = operator.make_operator(blocks, mass, active, res_per_level)
         rhs = operator.boundary_rhs(blocks, mass, guess, active, res_per_level)
         impl = config.apply_impl
+        refined = config.use_iterative_refinement
         if impl == "auto":
-            impl = "cuda" if device.type == "cuda" and sdtype == torch.float32 else "v1"
-        if config.use_iterative_refinement and impl not in ("v1", "v1-fused"):
-            # refinement drives whole-array applies in two precisions (the
-            # JAX package routes the same way, solver.py:328-330)
-            impl = "v1-fused"
-        if impl == "cuda" and sdtype != torch.float32:
+            on_card = device.type == "cuda" and (sdtype == torch.float32 or refined)
+            impl = "cuda" if on_card else "v1"
+        if impl == "cuda" and sdtype != torch.float32 and not refined:
             raise ValueError("apply_impl='cuda' computes in float32; for a float64 solve "
-                             "use use_iterative_refinement=True (float32 inner CG, float64 "
-                             "residual) or apply_impl='v1'/'v1-fused'")
-        apply_A = v1_apply
-        if impl == "v1-fused":
-            apply_A, _ = operator.make_operator(blocks, mass, active, res_per_level,
-                                                terms_builder=lambda: rebuild_terms(sdtype))
+                             "use use_iterative_refinement=True (float32 inner CG through "
+                             "the fused apply, float64 residual) or apply_impl='v1'")
+        # "v1-fused" runs the "v1" operator: the JAX package rebuilds the
+        # coefficients inside each apply to save memory, with the same numbers
         sys_ = System(state, orig_res, levels, impl, labels, vel_kinds, regular_kinds,
-                      res_per_level, active, apply_A, v1_apply, rhs, guess, diag,
-                      blocks=blocks, mass=mass, mask=mask, rebuild_terms=rebuild_terms)
+                      res_per_level, active, v1_apply, v1_apply, rhs, guess, diag,
+                      blocks=blocks, mass=mass, mask=mask)
         if impl == "cuda":
             topo = Topology() if topology is None else topology
             topo.fill(res_per_level, bboxes, device)
@@ -385,12 +368,16 @@ def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig()
 
     with clock("solve"):
         if config.use_iterative_refinement:
-            f32 = torch.float32
-            apply_A32, _ = operator.make_operator(
-                _cast_blocks(sys_.blocks, f32), {k: v.to(f32) for k, v in sys_.mass.items()},
-                sys_.active, sys_.res_per_level, terms_builder=lambda: sys_.rebuild_terms(f32))
+            if sys_.impl == "cuda":
+                def apply_A32(u):
+                    return sys_.crop_tree(sys_.apply_A(sys_.embed_tree(u)))
+            else:
+                f32 = torch.float32
+                apply_A32, _ = operator.make_operator(
+                    _cast_blocks(sys_.blocks, f32), {k: v.to(f32) for k, v in sys_.mass.items()},
+                    sys_.active, sys_.res_per_level)
             solution, iters, rel, applies = operator.pcg_refined(
-                sys_.apply_A, apply_A32, sys_.rhs, sys_.guess, sys_.diag, config.tolerance,
+                sys_.apply_v1, apply_A32, sys_.rhs, sys_.guess, sys_.diag, config.tolerance,
                 config.max_iterations)
         elif sys_.impl == "cuda":
             sol_c, iters, rel, applies = operator.pcg_flat(

@@ -86,10 +86,12 @@ Phases (one line each, elapsed seconds first):
                 ms, iterations and applies beside the Jacobi frames
   11 refined -- scenes.buckling(N_REFINED) in float64 with
                 use_iterative_refinement (tolerance 1e-9): the "refined"
-                path, a float32 inner apply, residual <= 1e-9, velocity
-                within rel 1e-5 of the float64 v1 solve; a v1-fused float32
-                frame of buckling-32 against the v1 frame (same iterations,
-                velocity within 1e-6 * max)
+                path, every inner apply float32 and through the kernels
+                (launch counts against the inner applies; the float64
+                residuals run v1), residual <= 1e-9, velocity within rel
+                1e-5 of the float64 v1 solve; a v1-fused float32 frame of
+                buckling-32 against the v1 frame (same iterations, velocity
+                within 1e-6 * max); the whole phase's seconds
   12 tail    -- models.flip.simulate on buckling-64 (float32, 3 frames, the
                 kernels' route, launch counts against the frames' applies);
                 a buckling-96 frame with cancel_poll_iters=16 and the flag
@@ -1220,23 +1222,30 @@ def main():
     del v192_jacobi
 
     # ---- 11 iterative refinement (float64), and the v1-fused operator
+    t_phase = time.perf_counter()
     st_r = scenes.buckling(n=N_REFINED, dtype=torch.float64, device=dev)
     cfg_r = SolverConfig(octree_levels=4, tolerance=1e-9)
-    inner = set()
+    inner = []   # the dtypes of each inner (float32) apply
     pcg_refined = port_operator.pcg_refined
 
     def pcg_refined_checked(hi, lo, *a, **kw):
         def lo_checked(u):
-            inner.update(v.dtype for v in u.values())
+            inner.append(frozenset(v.dtype for v in u.values()))
             return lo(u)
         return pcg_refined(hi, lo_checked, *a, **kw)
 
+    canons_r = fa.level_canons([tuple(N_REFINED >> l for _ in range(3)) for l in range(4)])
+    modes_r = fa.level_modes(canons_r, fa.route_budget(dev))
     port_operator.pcg_refined = pcg_refined_checked
     try:
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
         t = time.perf_counter()
         rr = solver.solve_viscosity(st_r, dt, dataclasses.replace(
             cfg_r, use_iterative_refinement=True), device=dev)
+        torch.cuda.synchronize()
         refined_s = time.perf_counter() - t
+        launches_r = dict(fa.launch_counts)
     finally:
         port_operator.pcg_refined = pcg_refined
     t = time.perf_counter()
@@ -1244,12 +1253,16 @@ def main():
     v1_r_s = time.perf_counter() - t
     scale_r = max(float(v.abs().max()) for v in rv.velocity)
     rel_r = max(float((a - b).abs().max()) for a, b in zip(rr.velocity, rv.velocity)) / scale_r
-    log("refined", f"buckling-{N_REFINED} float64: refined {refined_s:.2f} s, {rr.stats} | v1 "
-                   f"{v1_r_s:.2f} s, {rv.stats.iterations} iterations, residual "
-                   f"{rv.stats.residual:.3e} | inner apply dtypes {sorted(map(str, inner))}; "
-                   f"velocity refined vs v1 {rel_r:.2e} of max | {smi}")
+    log("refined", f"buckling-{N_REFINED} float64: refined {refined_s:.2f} s, {rr.stats}, "
+                   f"{len(inner)} inner applies, launches {launches_r} | v1 {v1_r_s:.2f} s, "
+                   f"{rv.stats.iterations} iterations, residual {rv.stats.residual:.3e} | inner "
+                   f"apply dtypes {sorted(map(str, set().union(*inner)))}; velocity refined vs "
+                   f"v1 {rel_r:.2e} of max | {smi}")
     assert rr.stats.solve_path == "refined" and rv.stats.solve_path == "v1"
-    assert inner == {torch.float32}, inner
+    assert inner and set(inner) == {frozenset({torch.float32})}, set(inner)
+    # every inner apply runs the kernels; the float64 residuals run v1
+    check_launches(launches_r, len(inner), canons_r, modes_r, "refined inner applies")
+    assert rr.stats.applies > len(inner) > rr.stats.iterations
     assert rr.stats.residual <= 1e-9 and rv.stats.residual <= 1e-9
     assert rel_r < 1e-5, rel_r
     del st_r, rr, rv
@@ -1271,6 +1284,9 @@ def main():
     assert rfu.stats.iterations == rv1.stats.iterations
     assert diff_f <= 1e-6 * scale_f, diff_f / scale_f
     del st32, rfu, rv1
+    refined_phase_s = time.perf_counter() - t_phase
+    log("refined", f"phase 11 took {refined_phase_s:.2f} s (buckling-{N_REFINED} refined and "
+                   f"float64 v1, buckling-32 v1-fused and v1)")
 
     # ---- 12 the tail: FLIP loop, cancellation, checkpoint, native checks, interp_at
     from adaptiveviscositysolver_tpu_torch import interpolator, native, octree
@@ -1422,7 +1438,8 @@ def main():
         "probes": probe_rows,
         "cheb": cheb,
         "refined": {"n": N_REFINED, "refined_s": refined_s, "v1_s": v1_r_s, "rel": rel_r,
-                    "v1_fused_s": fused_s, "v1_s_32": v1_s},
+                    "inner_applies": len(inner), "launches": launches_r,
+                    "v1_fused_s": fused_s, "v1_s_32": v1_s, "phase_s": refined_phase_s},
         "tail": {"flip_s": flip_s, "flip_iterations": [s_f.iterations for s_f in flip_stats],
                  "interp_rel": interp_rel, "interp_points": n_pts, "interp_ms": interp_ms},
         "wall_s": time.perf_counter() - T0}}), flush=True)

@@ -304,6 +304,27 @@ def test_chebyshev_solve_on_card_matches_cpu():
 
 
 @pytest.mark.gpu
+def test_refined_solve_on_card_runs_the_kernels():
+    """A float64 refined solve of buckling-32 on the card: the inner
+    float32 applies launch the fused pair (the float64 residuals run v1),
+    and the velocity lands within rel 1e-5 of the float64 v1 solve."""
+    _need_card()
+    state = scenes.buckling(n=32, dtype=torch.float64, device="cpu")
+    cfg = SolverConfig(octree_levels=3, tolerance=1e-9)
+    fa.reset_launch_counts()
+    got = solver.solve_viscosity(state, DT, dataclasses.replace(
+        cfg, use_iterative_refinement=True), device="cuda")
+    assert got.stats.solve_path == "refined" and got.stats.residual <= 1e-9
+    inner = fa.launch_counts["fused_tau"]
+    assert fa.launch_counts["fused_dt"] == inner and got.stats.applies > inner > 0
+    want = solver.solve_viscosity(state, DT, cfg, device="cuda")
+    assert want.stats.solve_path == "v1"
+    scale = max(float(v.abs().max()) for v in want.velocity)
+    for a in range(3):
+        assert float((got.velocity[a] - want.velocity[a]).abs().max()) / scale < 1e-5
+
+
+@pytest.mark.gpu
 def test_flip_loop_on_card_matches_cpu():
     """Two FLIP frames of buckling-32 on the card (the kernels' route)
     against the same frames on the CPU: every frame "cuda", iterations

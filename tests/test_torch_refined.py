@@ -124,18 +124,53 @@ def test_solver_refined_matches_jax_refined(refined_solves):
 
 
 def test_refinement_routes_to_v1_fused(small_case):
-    """Under refinement an impl other than "v1" runs "v1-fused" (as JAX
-    routes it), so a float64 "cuda" configuration is refused only without
-    it."""
+    """Under refinement every impl keeps its route: "cuda" runs the float32
+    inner CG through the canonical-box fused apply (so float64 is refused
+    for "cuda" only without refinement), "v1-fused" the "v1" operator, and
+    "auto" resolves to "v1" off the card."""
     case = small_case
     for impl in ("cuda", "v1-fused", "auto", "v1"):
         cfg = SolverConfig(octree_levels=2, apply_impl=impl, use_iterative_refinement=True)
         sys_ = solver.build_system(port_state(case), case["dt"], cfg, device="cpu")
-        # "auto" resolves to "v1" for float64 before refinement is looked at
-        assert sys_.impl == ("v1" if impl in ("v1", "auto") else "v1-fused"), impl
+        assert sys_.impl == ("v1" if impl == "auto" else impl), impl
+        assert (sys_.embed_tree is not None) == (impl == "cuda"), impl
+        assert sys_.apply_v1 is not None
     with pytest.raises(ValueError, match="float32"):
         solver.build_system(port_state(case), case["dt"],
                             SolverConfig(octree_levels=2, apply_impl="cuda"), device="cpu")
+
+
+def test_refined_inner_through_fused_apply_matches_jax(refined_solves, monkeypatch):
+    """apply_impl="cuda" under refinement: the float32 inner applies go
+    through the canonical-box fused apply (its plain version here), the
+    residual through float64 "v1"; the solve meets the tolerance and lands
+    within 1e-5 relative of the float64 solve and of JAX's refined one."""
+    r64, _, jref = refined_solves
+    case = build_case()
+    cfg = SolverConfig(octree_levels=case["levels"], tolerance=1e-9, max_iterations=4000,
+                       use_iterative_refinement=True, apply_impl="cuda")
+    inner = []
+    make = solver.fused_apply.make_fused_operator
+
+    def make_checked(*a, **kw):
+        apply_c, embed_tree, crop_tree = make(*a, **kw)
+
+        def apply_checked(u):
+            inner.append({v.dtype for v in u.values()})
+            return apply_c(u)
+        return apply_checked, embed_tree, crop_tree
+
+    monkeypatch.setattr(solver.fused_apply, "make_fused_operator", make_checked)
+    got = solver.solve_viscosity(port_state(case), case["dt"], cfg, device="cpu")
+    assert got.stats.solve_path == "refined" and got.stats.residual <= 1e-9
+    assert inner and all(d == {torch.float32} for d in inner)
+    # the inner applies are the fused ones; the rest are float64 residuals
+    assert got.stats.applies > len(inner) > got.stats.iterations
+    for want in (r64.velocity, jref.velocity):
+        scale = max(float(np.abs(N(v)).max()) for v in want)
+        for a in range(3):
+            diff = np.abs(N(got.velocity[a]) - N(want[a])).max()
+            assert diff / scale < 1e-5, (a, diff, scale)
 
 
 def test_face_weights_match_internal_and_jax(small_case):

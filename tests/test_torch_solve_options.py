@@ -1,7 +1,7 @@
 """The port's SolverConfig options past the main path vs the JAX package:
 the Chebyshev preconditioner, cancellation, the "v1-fused" operator and the
-reference-compat boundary component, with the pytree CG and the
-configuration they go through (refinement and host face weights:
+reference-compat boundary component, with the configuration they go
+through (refinement and host face weights:
 tests/test_torch_refined.py).
 
 The same numpy inputs (made from seeds) go through the JAX function and the
@@ -169,38 +169,6 @@ def test_pcg_flat_matches_jax_on_dense_system(degree):
     jlam = joperator.estimate_lambda_max(lambda v: jnp.asarray(a_np) @ v, jnp.asarray(invd),
                                          jnp.asarray(b_np))
     np.testing.assert_allclose(float(lam), float(jlam), rtol=1e-12)
-
-
-def test_pytree_pcg_matches_jax():
-    """pcg over a two-grid dict (tree_dot / tree_axpy) against JAX's."""
-    a_np, b_np = _spd_system(n=200, cond=1e3, seed=6)
-    a_t, a_j = torch.tensor(a_np), jnp.asarray(a_np)
-
-    def split(v):
-        return {(0, 0): v[:120].reshape(4, 5, 6), (0, 1): v[120:].reshape(2, 5, 8)}
-
-    def apply_t(t):
-        y = a_t @ torch.cat([t[(0, 0)].reshape(-1), t[(0, 1)].reshape(-1)])
-        return split(y)
-
-    def apply_j(t):
-        y = a_j @ jnp.concatenate([t[(0, 0)].reshape(-1), t[(0, 1)].reshape(-1)])
-        return split(y)
-
-    d = np.diag(a_np)
-    x, it, rel, applies = operator.pcg(apply_t, split(torch.tensor(b_np)),
-                                       split(torch.zeros(200, dtype=torch.float64)),
-                                       split(torch.tensor(d)), 1e-8, 5000)
-    jx, jit_, jrel = _jit(lambda r, x0, dg: joperator.pcg(apply_j, r, x0, dg, 1e-8, 5000),
-                          split(jnp.asarray(b_np)), split(jnp.zeros(200)),
-                          split(jnp.asarray(d)))
-    assert it == int(jit_) and applies == it + 1
-    assert float(rel) <= 1e-8
-    for k in x:
-        want = np.asarray(jx[k])
-        assert np.abs(N(x[k]) - want).max() <= 1e-8 * np.abs(want).max()
-    got = operator.tree_axpy(2.0, x, x)
-    close(operator.tree_dot(got, x), 3.0 * float(operator.tree_dot(x, x)))
 
 
 @pytest.fixture(scope="module")
