@@ -149,32 +149,35 @@ def make_packer(shapes: Dict[Tuple[int, int], Tuple[int, int, int]]):
 
 def _flat_pcg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
               x0: torch.Tensor, invd: torch.Tensor, threshold: torch.Tensor,
-              max_iterations: int, precond: Optional[Callable] = None, cancel_poll: int = 0):
+              max_iterations: int, precond: Optional[Callable] = None, cancel_poll: int = 0,
+              dot: Callable = torch.dot):
     """Flat-vector PCG: iterate while ``||r||^2 > threshold`` (tested before
     each iteration, as the JAX ``while_loop`` does; reading the test costs
     one host sync per iteration).  ``precond`` replaces the Jacobi ``z =
     invd * r`` with any fixed SPD map (:func:`make_chebyshev_precond`).
     ``cancel_poll > 0``: every that-many iterations, after the increment,
     read ``utils.cancel``'s flag and stop before the next iteration when it
-    is set.  Returns (x, iterations, ||r||^2)."""
+    is set.  ``dot``: the inner product (a sharded solve's sums the ranks'
+    local dots: parallel/shard_fused.py); 3 + 3 per iteration.  Returns
+    (x, iterations, ||r||^2)."""
     if precond is None:
         def precond(r):
             return invd * r
     r = b - A(x0)
-    rr = torch.dot(r, r)
+    rr = dot(r, r)
     z = precond(r)
-    rz = torch.dot(r, z)
+    rz = dot(r, z)
     p = z
     x = x0
     it = 0
     while it < max_iterations and bool(rr > threshold):
         ap = A(p)
-        alpha = rz / torch.dot(p, ap)
+        alpha = rz / dot(p, ap)
         x = x + alpha * p
         r = r - alpha * ap
-        rr = torch.dot(r, r)
+        rr = dot(r, r)
         z = precond(r)
-        rz_new = torch.dot(r, z)
+        rz_new = dot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
         it += 1
@@ -183,18 +186,19 @@ def _flat_pcg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     return x, it, rr
 
 
-def estimate_lambda_max(A, invd: torch.Tensor, v0: torch.Tensor, iters: int = 12):
+def estimate_lambda_max(A, invd: torch.Tensor, v0: torch.Tensor, iters: int = 12,
+                        dot: Callable = torch.dot):
     """Largest eigenvalue of the Jacobi-scaled operator ``invd * A`` by
     ``iters`` power iterations, as the Rayleigh quotient in the D inner
     product (a lower bound until converged: callers pad it).  ``iters`` + 1
-    applies; no host read."""
+    applies and ``iters`` + 3 ``dot``s; no host read on one device."""
     eps = torch.tensor(1e-30, dtype=v0.dtype, device=v0.device)
-    v = v0 * torch.rsqrt(torch.dot(v0, v0) + eps)
+    v = v0 * torch.rsqrt(dot(v0, v0) + eps)
     for _ in range(iters):
         w = invd * A(v)
-        v = w * torch.rsqrt(torch.dot(w, w) + eps)
+        v = w * torch.rsqrt(dot(w, w) + eps)
     av = A(v)
-    return torch.dot(v, av) / (torch.dot(v, v / invd) + eps)
+    return dot(v, av) / (dot(v, v / invd) + eps)
 
 
 def make_chebyshev_precond(A, invd: torch.Tensor, lam_max, degree: int,

@@ -86,6 +86,20 @@ TAU_NAMES = ("wte0", "wte1", "wte2", "wtc0", "wtc1", "wtc2")
 # brick plus 2 rows each side (rounded up to even, as the JAX package's
 # D^T halo is)
 TAU_HALO = 2
+# x rows of u the tau pass over an even-bounded range reads past it: 2
+# below, 1 above (tests/test_torch_fused_apply.py::test_tau_reads_within_its_reach)
+TAU_REACH = (2, 1)
+# x rows of weighted stress the D^T pass over an even-bounded range reads
+# past it: 1 each side (test_dt_reads_one_row_past_each_brick)
+DT_REACH = (1, 1)
+# x pad of a box whose pads hold a neighbour's rows (parallel/shard_fused):
+# D^T on a slab (even bounds) reads the weighted stresses DT_REACH rows
+# past it, the even-bounded tau range that covers those rows reaches one
+# row further, and reads u TAU_REACH rows past that: 2 + 2 below, 1 + 2
+# above, so 4, even (canonical parity stays logical parity).  Sample by
+# sample the plain pass reads 2 (tests/test_torch_shard.py::
+# test_owned_rows_read_two_rows_past_the_slab).  y and z keep PAD.
+HALO_X = -(-max(t + -(-d // 2) * 2 for t, d in zip(TAU_REACH, DT_REACH)) // 2) * 2
 # share of the L2 cache the routing lets one tau round trip fill (the JAX
 # level_modes keeps the same margin against its VMEM limit); the routing's
 # stand-in for the VMEM limit, not a measured optimum
@@ -112,15 +126,16 @@ class Canon:
     win: Tuple[int, int, int]    # cell extents of the window (res if uncropped)
     org: Tuple[int, int, int] = (0, 0, 0)
     brick: Optional[int] = None  # x rows per brick on the "brick" route (even)
+    pad_x: int = PAD             # low (and high) x pad: HALO_X on a sharded local box
 
     @property
     def off(self) -> Tuple[int, int, int]:
-        return (PAD, PAD, PAD)
+        return (self.pad_x, PAD, PAD)
 
     @property
     def cap(self) -> Tuple[int, int, int]:
         """Logical rows the box holds per axis."""
-        return tuple(s - 2 * PAD for s in self.shape)
+        return tuple(s - 2 * o for s, o in zip(self.shape, self.off))
 
     def row_ranges(self) -> List[Tuple[int, int]]:
         """x-row ranges the level pair runs over: the bricks (every origin
@@ -142,13 +157,18 @@ def tau_rows(rows: Tuple[int, int], cx: int) -> Tuple[int, int]:
     return max(0, rows[0] - TAU_HALO), min(cx, rows[1] + TAU_HALO)
 
 
-def make_canon(res: Sequence[int], bbox=None, brick: Optional[int] = None) -> Canon:
+def make_canon(res: Sequence[int], bbox=None, brick: Optional[int] = None,
+               pad_x: int = PAD) -> Canon:
     """Box for a level of resolution ``res``, optionally cropped to ``bbox``
     (((x0, x1), (y0, y1), (z0, z1)) cell ranges, each lo even).  The box
     covers the window's cells plus the staggered closing row, a pad of
-    ``PAD`` on each side, rounded up to even extents.  ``brick``: x rows
-    per brick of the "brick" route (even, so brick origins keep parity)."""
+    ``PAD`` on each side (``pad_x`` along x), rounded up to even extents.
+    ``brick``: x rows per brick of the "brick" route (even, so brick
+    origins keep parity).  ``pad_x`` (even, >= PAD): the x pad of a sharded
+    rank's local box, whose pads receive the neighbours' rows."""
     brick = None if brick is None else _brick(brick)
+    if pad_x < PAD or pad_x % 2:
+        raise ValueError(f"the x pad is even and >= {PAD}, got {pad_x}")
     if bbox is not None:
         org = tuple(int(b[0]) for b in bbox)
         for d, b in enumerate(bbox):
@@ -160,8 +180,8 @@ def make_canon(res: Sequence[int], bbox=None, brick: Optional[int] = None) -> Ca
     else:
         org = (0, 0, 0)
         ext = list(res)
-    shape = tuple(-(-(n + 1 + 2 * PAD) // 2) * 2 for n in ext)
-    return Canon(tuple(int(r) for r in res), shape, tuple(ext), org, brick)
+    shape = tuple(-(-(n + 1 + 2 * p) // 2) * 2 for n, p in zip(ext, (pad_x, PAD, PAD)))
+    return Canon(tuple(int(r) for r in res), shape, tuple(ext), org, brick, pad_x)
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +363,24 @@ def level_canons(res_per_level, bboxes=None) -> List[Canon]:
             for l, res in enumerate(res_per_level)]
 
 
+def pack_kinds(kinds: Dict[str, torch.Tensor], canon: Canon, level: int, levels: int
+               ) -> List[torch.Tensor]:
+    """Level ``level``'s kind grids (``vk0-2``, ``ek0-2``, ``ck`` and, below
+    the top, ``pk0-2``) embedded in its box and bit-packed, one int8 box
+    per group of :func:`pack_groups` (unused slots and pads read OUTSIDE)."""
+    out = []
+    for group in pack_groups(level, levels):
+        packed = None
+        for slot, name in enumerate(group):
+            code = embed((-kinds[name]).to(torch.int32), canon, 3)
+            term = code << (2 * slot)
+            packed = term if packed is None else packed | term
+        for slot in range(len(group), 3):
+            packed = packed | (3 << (2 * slot))
+        out.append(packed.to(KIND_DT))
+    return out
+
+
 def build_frame_data(labels, vel_kinds, edge_kinds, center_kinds, blocks, mass: UField,
                      res_per_level, bboxes=None, modes: Optional[Sequence[Mode]] = None,
                      canons: Optional[Sequence[Canon]] = None):
@@ -372,15 +410,8 @@ def build_frame_data(labels, vel_kinds, edge_kinds, center_kinds, blocks, mass: 
         if l + 1 < levels:
             for f in range(3):
                 kinds[f"pk{f}"] = upread(vel_kinds[l + 1][f], face_shape(res_per_level[l], f))
-        for g, group in enumerate(pack_groups(l, levels)):
-            packed = None
-            for slot, name in enumerate(group):
-                code = embed((-kinds[name]).to(torch.int32), c, 3)
-                term = code << (2 * slot)
-                packed = term if packed is None else packed | term
-            for slot in range(len(group), 3):
-                packed = packed | (3 << (2 * slot))
-            data[f"kp{g}_{l}"] = packed.to(KIND_DT)
+        for g, packed in enumerate(pack_kinds(kinds, c, l, levels)):
+            data[f"kp{g}_{l}"] = packed
     for b in blocks:
         if b.kind == "edge":
             data[f"we{b.axis}_{b.level}"] = embed(b.weight.to(F32), canons[b.level], 0.0)
@@ -402,6 +433,7 @@ class LevelMeta:
     has_parent: bool
     has_child: bool
     win: Tuple[int, int, int]    # cell extents of the level's window
+    off_x: int = PAD             # canonical x row of the window's first row
 
 
 def _sh(x: torch.Tensor, off, fill=0.0) -> torch.Tensor:
@@ -910,8 +942,8 @@ def _window_counts(m: LevelMeta, rows: Optional[Tuple[int, int]] = None):
 
     def count(shape):
         nx = shape[0]
-        if rows is not None:   # the window's x rows are canonical [PAD, PAD + nx)
-            nx = max(0, min(rows[1], PAD + nx) - max(rows[0], PAD))
+        if rows is not None:   # the window's x rows are canonical [off_x, off_x + nx)
+            nx = max(0, min(rows[1], m.off_x + nx) - max(rows[0], m.off_x))
         return nx * int(shape[1]) * int(shape[2])
 
     face = sum(count(face_shape(w, f)) for f in range(3))
@@ -964,7 +996,7 @@ def kernel_flops(metas: Sequence[LevelMeta], enhanced: bool,
 def level_metas(canons: Sequence[Canon], dx: float) -> List[LevelMeta]:
     levels = len(canons)
     return [LevelMeta(l, tuple(canons[l].shape), dx * (1 << l), l + 1 < levels, l > 0,
-                      canons[l].win) for l in range(levels)]
+                      canons[l].win, canons[l].pad_x) for l in range(levels)]
 
 
 def _plain_tau(levels, metas, enhanced):
@@ -1010,35 +1042,31 @@ def operator_buffers(canons: Sequence[Canon], modes: Sequence[Mode], device
             "outs": [dt_outputs(m, dev) for m in metas]}
 
 
-def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
-                        active: UField, res_per_level, dx: float, enhanced: bool,
-                        plain: bool = False, modes: Optional[Sequence[Mode]] = None,
-                        buffers: Optional[Dict[str, object]] = None):
-    """Return (apply_A, embed_tree, crop_tree) in canonical space (the port
-    of make_pallas_operator): per apply, the glue builds the cross-level
-    views; the "fused" levels run ``fused_tau`` and ``fused_dt`` once each
-    for the whole group; each "split" or bricked level runs
+def make_level_pass(frame: Dict[str, torch.Tensor], canons: Sequence[Canon], dx: float,
+                    enhanced: bool, plain: bool = False, modes: Optional[Sequence[Mode]] = None,
+                    buffers: Optional[Dict[str, object]] = None):
+    """The kernels of one apply, on per-level inputs made by the caller:
+    ``run(args) -> [per level {out0-2, zp0-2, zc0-2}]``, where ``args[l]``
+    holds the level's ``u0-2``, ``up0-2`` and ``cs0-2`` (see
+    :func:`level_input_names`) over ``run.static[l]``, the frame's other
+    inputs.  The "fused" levels run ``fused_tau`` and ``fused_dt`` once
+    each for the whole group; each "split" or bricked level runs
     ``tau_level``/``dt_level`` once per x-row range of its canon
     (:meth:`Canon.row_ranges`) over one weighted-stress scratch shared by
-    those levels; then the zp/zc adjoints are added masked to the receiving
-    level.  The weighted stresses and the D^T outputs go into ``buffers``
-    (:func:`operator_buffers` of these canons and modes; allocated here if
-    not given), so a returned grid of a one-level operator is a buffer that
-    the next apply overwrites.
-
-    ``modes``: the route of each level (default all "fused"); a bricked
-    level's canon carries its brick (:func:`route_canons`).
-    ``plain=True`` calls the kernels' plain versions on any device (the
-    yardstick a kernel is held to on the card; never the solver's path)."""
-    levels = len(res_per_level)
+    those levels.  The weighted stresses and the D^T outputs go into
+    ``buffers`` (:func:`operator_buffers` of these canons and modes;
+    allocated here if not given).  ``modes``: the route of each level
+    (default all "fused"); a bricked level's canon carries its brick
+    (:func:`route_canons`).  ``plain=True`` calls the kernels' plain
+    versions on any device (the yardstick a kernel is held to on the card;
+    never the solver's path).  ``run.metas``: the levels' metas."""
+    levels = len(canons)
     modes = ["fused"] * levels if modes is None else list(modes)
     if [c.brick for c in route_canons(canons, modes)] != [c.brick for c in canons]:
         raise ValueError(f"routes {modes} disagree with the canons' bricks "
                          f"{[c.brick for c in canons]}: build the canons with route_canons")
     metas = level_metas(canons, dx)
     dev = frame["kp0_0"].device
-    active_c = {(l, f): embed(active[(l, f)], canons[l], False)
-                for l in range(levels) for f in range(3)}
     static = [{n: frame[f"{n}_{l}"] for n in level_input_names(metas[l])
                if not n.startswith(("u", "up", "cs"))} for l in range(levels)]
     fused = [l for l in range(levels) if modes[l] == "fused"]
@@ -1052,26 +1080,6 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
         return {name: scratch[k * n:(k + 1) * n].view(rows, *canons[l].shape[1:])
                 for k, name in enumerate(TAU_NAMES)}
 
-    def embed_tree(u: UField, fill=0.0) -> UField:
-        return {(l, f): embed(u[(l, f)].to(F32), canons[l], fill) for (l, f) in u}
-
-    def crop_tree(u: UField) -> UField:
-        return {(l, f): crop(u[(l, f)], canons[l], face_shape(res_per_level[l], f))
-                for (l, f) in u}
-
-    def level_args(u: UField) -> List[Dict[str, torch.Tensor]]:
-        args = []
-        for l in range(levels):
-            d = dict(static[l])
-            for f in range(3):
-                d[f"u{f}"] = u[(l, f)].contiguous()
-                if l + 1 < levels:
-                    d[f"up{f}"] = up_view(u[(l + 1, f)], canons[l + 1], canons[l]).contiguous()
-                if l > 0:
-                    d[f"cs{f}"] = cs_view(u[(l - 1, f)], canons[l - 1], canons[l], f).contiguous()
-            args.append(d)
-        return args
-
     def level_pair(l: int, args: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One split or bricked level: the pair once per x-row range."""
         meta = metas[l]
@@ -1083,8 +1091,7 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
             dt_fn(args, tau, t0, meta, enhanced, rows, out)
         return out
 
-    def apply_A(u: UField) -> UField:
-        args = level_args(u)
+    def run(args: Sequence[Dict[str, torch.Tensor]]) -> List[Dict[str, torch.Tensor]]:
         res: List[Optional[Dict[str, torch.Tensor]]] = [None] * levels
         if fused:
             fa_, fm = [args[l] for l in fused], [metas[l] for l in fused]
@@ -1097,18 +1104,96 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
                 res[l] = r
         for l in routed:
             res[l] = level_pair(l, args[l])
-        outs = {(l, f): res[l][f"out{f}"] for l in range(levels) for f in range(3)}
-        zero = torch.zeros((), dtype=F32, device=u[(0, 0)].device)
-        for l in range(levels - 1):
-            for f in range(3):
-                adj = up_adjoint(res[l][f"zp{f}"], canons[l], canons[l + 1])
-                outs[(l + 1, f)] = outs[(l + 1, f)] + torch.where(active_c[(l + 1, f)], adj, zero)
-        for l in range(1, levels):
-            for f in range(3):
-                adj = cs_adjoint(res[l][f"zc{f}"], canons[l], canons[l - 1], f)
-                outs[(l - 1, f)] = outs[(l - 1, f)] + torch.where(active_c[(l - 1, f)], adj, zero)
-        return outs
+        return res
 
-    apply_A.metas = metas
+    run.metas = metas
+    run.static = static
+    return run
+
+
+def join_levels(res: Sequence[Dict[str, torch.Tensor]], canons: Sequence[Canon],
+                active_c: UField, window: Optional[UField] = None) -> UField:
+    """The apply's grids from the level pass's outputs: each level's
+    ``out``, plus the adjoints of the cross-level views, ``zp`` of level l
+    to level l + 1 and ``zc`` of level l to level l - 1, each masked by
+    the receiving level's FLUID faces (``active_c``, canonical).
+    ``window`` (per (level, axis), canonical 0/1): crop each ``zp``/``zc``
+    to it first (a sharded rank's local grids, whose pads hold
+    neighbours' rows; the single-device box's pads hold no live term)."""
+    levels = len(canons)
+    outs = {(l, f): res[l][f"out{f}"] for l in range(levels) for f in range(3)}
+    zero = torch.zeros((), dtype=F32, device=outs[(0, 0)].device)
+
+    def z(l, f, name):
+        v = res[l][f"{name}{f}"]
+        return v if window is None else v * window[(l, f)]
+
+    for l in range(levels - 1):
+        for f in range(3):
+            adj = up_adjoint(z(l, f, "zp"), canons[l], canons[l + 1])
+            outs[(l + 1, f)] = outs[(l + 1, f)] + torch.where(active_c[(l + 1, f)], adj, zero)
+    for l in range(1, levels):
+        for f in range(3):
+            adj = cs_adjoint(z(l, f, "zc"), canons[l], canons[l - 1], f)
+            outs[(l - 1, f)] = outs[(l - 1, f)] + torch.where(active_c[(l - 1, f)], adj, zero)
+    return outs
+
+
+def cross_level_views(u: UField, canons: Sequence[Canon]
+                      ) -> Dict[Tuple[str, int, int], torch.Tensor]:
+    """The cross-level views of a canonical iterate, keyed (name, level,
+    axis): ``up`` of level l from level l + 1, ``cs`` of level l from level
+    l - 1 (contiguous)."""
+    levels = len(canons)
+    views = {}
+    for l in range(levels):
+        for f in range(3):
+            if l + 1 < levels:
+                views[("up", l, f)] = up_view(u[(l + 1, f)], canons[l + 1], canons[l]).contiguous()
+            if l > 0:
+                views[("cs", l, f)] = cs_view(u[(l - 1, f)], canons[l - 1], canons[l],
+                                              f).contiguous()
+    return views
+
+
+def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
+                        active: UField, res_per_level, dx: float, enhanced: bool,
+                        plain: bool = False, modes: Optional[Sequence[Mode]] = None,
+                        buffers: Optional[Dict[str, object]] = None):
+    """Return (apply_A, embed_tree, crop_tree) in canonical space (the port
+    of make_pallas_operator): per apply, the glue builds the cross-level
+    views, :func:`make_level_pass` runs the kernels of each level's route
+    (``modes``, ``buffers``, ``plain``: see there), and
+    :func:`join_levels` adds the zp/zc adjoints masked to the receiving
+    level.  A returned grid of a one-level operator is a buffer that the
+    next apply overwrites."""
+    levels = len(res_per_level)
+    run = make_level_pass(frame, canons, dx, enhanced, plain=plain, modes=modes,
+                          buffers=buffers)
+    active_c = {(l, f): embed(active[(l, f)], canons[l], False)
+                for l in range(levels) for f in range(3)}
+
+    def embed_tree(u: UField, fill=0.0) -> UField:
+        return {(l, f): embed(u[(l, f)].to(F32), canons[l], fill) for (l, f) in u}
+
+    def crop_tree(u: UField) -> UField:
+        return {(l, f): crop(u[(l, f)], canons[l], face_shape(res_per_level[l], f))
+                for (l, f) in u}
+
+    def level_args(u: UField) -> List[Dict[str, torch.Tensor]]:
+        views = cross_level_views(u, canons)
+        args = []
+        for l in range(levels):
+            d = dict(run.static[l])
+            for f in range(3):
+                d[f"u{f}"] = u[(l, f)].contiguous()
+            d.update({f"{n}{f}": v for (n, vl, f), v in views.items() if vl == l})
+            args.append(d)
+        return args
+
+    def apply_A(u: UField) -> UField:
+        return join_levels(run(level_args(u)), canons, active_c)
+
+    apply_A.metas = run.metas
     apply_A.level_args = level_args
     return apply_A, embed_tree, crop_tree

@@ -30,7 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .fused_apply import PAD, Canon, LevelMeta, level_input_names
+from .fused_apply import Canon, LevelMeta, level_input_names
 
 F32 = torch.float32
 MAX_BANDS = 32     # csrc/probe_kernels.cuh AVS_MAX_BANDS
@@ -159,7 +159,8 @@ def banded_apply(u: torch.Tensor, coeffs: Sequence[torch.Tensor]) -> torch.Tenso
 def window_rows(canon: Canon) -> Tuple[int, int]:
     """x rows of a level's box that hold its window: the cells and the
     closing face row, after the low pad."""
-    return PAD, min(canon.shape[0], PAD + canon.win[0] + 1)
+    ox = canon.off[0]
+    return ox, min(canon.shape[0], ox + canon.win[0] + 1)
 
 
 def floor_inputs(args: Dict[str, torch.Tensor], meta: LevelMeta) -> List[torch.Tensor]:

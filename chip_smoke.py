@@ -100,6 +100,22 @@ Phases (one line each, elapsed seconds first):
                 octree checks on the 96^3 octree and its PLY; interp_at at
                 the 96^3 solution's UNASSIGNED level-0 faces against the
                 writeback interpolation (1e-6 * max)
+  13 shard   -- the sharded CG (B6: the kernels on each rank's halo-filled
+                local boxes) on 2 gloo ranks sharing the card:
+                buckling-96 through parallel.mesh.make_sharded_solver, a
+                cold and a warm frame on the default routes and on a budget
+                that puts level 0 of a local box in bricks, each against
+                the single-device solve_viscosity of the same config
+                (186836 / 284564 DOFs, iterations +- 2, residual <= 1e-4,
+                velocity rel 5e-4, "cuda-sharded" on each rank, each rank's
+                launches = applies x its x-row ranges, its exchanges,
+                all-reduces and gathers as designed); on rank 0's local
+                boxes every kernel of both routes against its plain version,
+                its time and bound, the CSR A @ x of rank 0's owned rows
+                (held to the gathered sharded apply); the dry-run analog
+                (parallel.mesh.dryrun_multichip) on 8 ranks; each frame's
+                seconds and each rank's share of it in collectives (2 ranks
+                on one card measure no scale-out)
 
 Phase 3 also runs the make_solver cache: a fresh solver's 3 frames of
 buckling-96 (only the first probes; one cached topology; the cold and cached
@@ -108,7 +124,9 @@ solve of the same frame (velocity within rel 5e-4, iterations +- 2).
 
 The last lines are a ``{"kernels": [...]}`` JSON line (the four matvec
 kernels also carry their registers, spill bytes, shared memory per block
-and resident blocks per SM), the nvidia-smi line, and ``{"ok": true,
+and resident blocks per SM, and their phase-13 numbers on a rank's local
+boxes under "sharded"; "paths" names the paths each runs on), the
+nvidia-smi line, and ``{"ok": true,
 "device": {...}}``.  Every failed check raises; the whole
 run is bounded by an in-process deadline.  It imports nothing of JAX.
 """
@@ -154,6 +172,13 @@ REPLACES = {
     "banded_apply": "tools/calibrate_bandwidth.py:30 (banded_kernel; pallas_call at :63)",
     "stream_floor": "tools/profile_levels.py:128 (dma_kernel; pallas_call at :163)",
 }
+# the paths each kernel runs on (phases 3-13); "sharded": B6, the kernels on
+# a rank's halo-filled local boxes (phase 13)
+_FUSED_PATHS = ["single-device", "chebyshev", "refined", "flip", "sharded"]
+_LEVEL_PATHS = ["single-device", "chebyshev", "sharded"]
+PATHS = {"fused_tau": _FUSED_PATHS, "fused_dt": _FUSED_PATHS, "tau_level": _LEVEL_PATHS,
+         "dt_level": _LEVEL_PATHS, "banded_apply": ["probe tools"],
+         "stream_floor": ["probe tools"]}
 SOURCE = {"fused_tau": "fused_apply.cu", "fused_dt": "fused_apply.cu",
           "tau_level": "level_apply.cu", "dt_level": "level_apply.cu",
           "banded_apply": "probe_kernels.cu", "stream_floor": "probe_kernels.cu"}
@@ -401,6 +426,11 @@ def check_launches(counts, applies, canons, modes, what):
     want = {"fused_tau": applies * fused, "fused_dt": applies * fused,
             "tau_level": applies * ranges, "dt_level": applies * ranges}
     assert counts == want, f"{what}: launches {counts}, want {want} ({applies} applies, {modes})"
+
+
+def worst_by_kernel(*errs):
+    """The worst (abs, rel) of each kernel over several routed_errors."""
+    return {k: worst(*(e[k] for e in errs)) for k in errs[0]}
 
 
 def worst(*errs):
@@ -1384,6 +1414,156 @@ def main():
     assert n_pts > 0 and interp_rel <= 1e-6, (n_pts, interp_rel)
     del sys96, u96, dense, sol_c
 
+    # ---- 13 shard: the sharded CG on 2 gloo ranks sharing the card (B6: the
+    # kernels on halo-filled local boxes), and the dry-run analog on 8 ranks
+    from adaptiveviscositysolver_tpu_torch import export
+    from adaptiveviscositysolver_tpu_torch.parallel import mesh as pmesh
+    from adaptiveviscositysolver_tpu_torch.parallel import shard_fused
+
+    t_phase = time.perf_counter()
+    n_ranks = 2
+    cfg_sh = SolverConfig(octree_levels=4, tolerance=1e-4)
+    single_sh = solver.solve_viscosity(state, dt, cfg_sh, device=dev)
+    sys_sh = solver.build_system(state, dt, cfg_sh, device=dev)
+    rpl_sh = sys_sh.res_per_level
+    assert solver.padded_shape((N,) * 3, len(rpl_sh), n_ranks) == (N,) * 3
+    # a budget under the weighted stresses of a rank's level-0 box: level 0
+    # runs in bricks (B3-B5 on halo-filled boxes)
+    lc0 = shard_fused.local_canons([(r[0] // n_ranks, r[1], r[2]) for r in rpl_sh])[0]
+    brick_budget = fa.tau_bytes(lc0) / 3
+    runs = pmesh.launch(n_ranks, pmesh.solve_on_ranks, ("buckling", N), dt, [cfg_sh, cfg_sh], 2,
+                        False, [None, brick_budget], timeout=200, device=dev)
+    scale_sh = max(float(v.abs().max()) for v in single_sh.velocity)
+    share = {}
+    sharded_warm = {}
+    for i, route in enumerate(("default", "bricked")):
+        per_rank = [r[i] for r in runs]
+        st_sh = per_rank[0]["stats"]
+        assert all(r["stats"] == st_sh for r in per_rank), [r["stats"] for r in per_rank]
+        assert st_sh["solve_path"] == "cuda-sharded", st_sh
+        assert (st_sh["octree_dofs"], st_sh["regular_dofs"]) == (EXPECT["octree_dofs"],
+                                                                 EXPECT["regular_dofs"]), st_sh
+        assert abs(st_sh["iterations"] - single_sh.stats.iterations) <= 2, st_sh
+        assert st_sh["residual"] <= 1e-4, st_sh
+        rel_sh = max(float(np.abs(g - w.cpu().numpy()).max())
+                     for g, w in zip(per_rank[0]["velocity"], single_sh.velocity)) / scale_sh
+        assert rel_sh < 5e-4, (route, rel_sh)
+        want_x = shard_fused.expected_exchanges(rpl_sh, n_ranks, st_sh["applies"])
+        for r in per_rank:
+            applies = st_sh["applies"]
+            want_l = {"fused_tau": applies * r["fused"], "fused_dt": applies * r["fused"],
+                      "tau_level": applies * r["row_ranges"], "dt_level": applies * r["row_ranges"]}
+            assert r["launches"] == want_l, (route, r["rank"], r["launches"], want_l)
+            assert r["collectives"] == {"exchanges": want_x["frame"] + want_x["apply"],
+                                        "allreduces": 3 + 3 * st_sh["iterations"],
+                                        "gathers": 2}, (route, r["rank"], r["collectives"])
+            if route == "bricked":
+                assert r["modes"][0].startswith("('brick'"), r["modes"]
+        share[route] = [{k: v / r["seconds"][-1] for k, v in r["collective_seconds"].items()}
+                        for r in per_rank]
+        sharded_warm[route] = per_rank[0]["seconds"]
+        log("shard", f"buckling-{N} on {n_ranks} gloo ranks sharing one card, {route} routes "
+                     f"{per_rank[0]['modes']}: {st_sh['iterations']} it (single-device "
+                     f"{single_sh.stats.iterations}), residual {st_sh['residual']:.3e}, velocity "
+                     f"{rel_sh:.2e} of max from the single-device solve; frames "
+                     f"{['%.3f' % s for s in per_rank[0]['seconds']]} s (cold, warm); per rank "
+                     f"launches {[r['launches'] for r in per_rank]}, collectives "
+                     f"{per_rank[0]['collectives']}; share of the warm frame per rank in "
+                     f"exchanges / all-reduces / gathers "
+                     + "; ".join(" / ".join("%.3f" % x[k] for k in ("exchanges", "allreduces",
+                                                                    "gathers"))
+                                 for x in share[route])
+                     + f" (2 ranks sharing one card: no scale-out is measured) | {smi}")
+
+    # rank 0's halo-filled local boxes: each kernel of both routes against its
+    # plain version, its time and bound there, and the CSR of its owned rows
+    app = pmesh.launch(n_ranks, pmesh.apply_on_ranks, ("buckling", N), dt, cfg_sh, 0, False, True,
+                       timeout=120, device=dev)
+    loc = app[0]["local"]
+    args_sh = [{k: torch.from_numpy(v).to(dev) for k, v in a.items()} for a in loc["args"]]
+    canons_sh, modes_sh = loc["canons"], loc["modes"]
+    metas_sh = fa.level_metas(canons_sh, state.dx)
+    modes_bk = fa.level_modes([dataclasses.replace(c, brick=None) for c in canons_sh],
+                              brick_budget)
+    canons_bk = fa.route_canons(canons_sh, modes_bk)
+    err_sh = worst_by_kernel(routed_errors(args_sh, metas_sh, canons_sh, modes_sh, enh, "shard"),
+                             routed_errors(args_sh, metas_sh, canons_bk, modes_bk, enh,
+                                           "shard bricked"))
+    fused_l = [l for l, m in enumerate(modes_sh) if m == "fused"]
+    sh_ms = dict(zip(("fused_tau", "fused_dt"), time_fused_levels(
+        [args_sh[l] for l in fused_l], [metas_sh[l] for l in fused_l], enh, reps)))
+    sh_plain = {"fused_tau": cuda_ms(lambda: fa._plain_tau(args_sh, metas_sh, enh), 3)}
+    taus_sh = fa._plain_tau(args_sh, metas_sh, enh)
+    sh_plain["fused_dt"] = cuda_ms(lambda: fa._plain_dt(args_sh, taus_sh, metas_sh, enh), 3)
+    sh_ms["tau_level"] = sh_ms["dt_level"] = 0.0
+    sh_plain["tau_level"] = sh_plain["dt_level"] = 0.0
+    for l, m in enumerate(modes_bk):
+        if m != "fused":
+            t_ms, d_ms = time_level_pair(args_sh[l], metas_sh[l], canons_bk[l], enh, 10)
+            tp_ms, dp_ms = time_level_pair(args_sh[l], metas_sh[l], canons_bk[l], enh, 1,
+                                           plain=True)
+            sh_ms["tau_level"] += t_ms
+            sh_ms["dt_level"] += d_ms
+            sh_plain["tau_level"] += tp_ms
+            sh_plain["dt_level"] += dp_ms
+    routed_b = [l for l, m in enumerate(modes_bk) if m != "fused"]
+    nb_f = fa.kernel_bytes([metas_sh[l] for l in fused_l])
+    nf_f = fa.kernel_flops([metas_sh[l] for l in fused_l], enh)
+    nb_b = fa.kernel_bytes([metas_sh[l] for l in routed_b])
+    nf_b = fa.kernel_flops([metas_sh[l] for l in routed_b], enh)
+    sh_bounds = {"fused_tau": bound(nb_f["tau"], nf_f["tau"]),
+                 "fused_dt": bound(nb_f["dt"], nf_f["dt"]),
+                 "tau_level": bound(nb_b["tau"], nf_b["tau"]),
+                 "dt_level": bound(nb_b["dt"], nf_b["dt"])}
+    # the CSR system of the whole grid, restricted to rank 0's owned rows,
+    # timed on the DOF vector of the same random u, and held to the
+    # gathered sharded apply there
+    t = time.perf_counter()
+    A_sh, _, idx_sh, n_sh, _, _ = export._assemble(sys_sh.blocks, sys_sh.mass, sys_sh.vel_kinds,
+                                                   sys_sh.guess, rpl_sh)
+    export_sh_s = time.perf_counter() - t
+    u_sh = pmesh.random_faces(sys_sh.active, 0)
+    x_sh = np.zeros(n_sh, np.float32)
+    own_rows = []
+    for (l, a), g in u_sh.items():
+        idx = idx_sh[l][a]
+        sel = idx >= 0
+        x_sh[idx[sel]] = g.cpu().numpy()[sel]
+        w_l = rpl_sh[l][0] // n_ranks
+        own_rows.append(idx[:w_l][idx[:w_l] >= 0])
+    own_rows = np.sort(np.concatenate(own_rows))
+    A_own = _csr_on(A_sh[own_rows], dev)
+    xt = torch.from_numpy(x_sh).to(dev)
+    csr_own_ms = cuda_ms(lambda: A_own @ xt, reps)
+    y_own = (A_own @ xt).cpu().numpy()
+    out_sh = app[0]["out"]
+    got_own = np.zeros(n_sh, np.float32)
+    for (l, a), g in out_sh.items():
+        idx = idx_sh[l][a]
+        sel = idx >= 0
+        got_own[idx[sel]] = g[sel]
+    csr_err = float(np.abs(got_own[own_rows] - y_own).max())
+    csr_scale = max(float(np.abs(y_own).max()), 1e-30)
+    assert csr_err <= TOL * csr_scale, (csr_err, csr_scale)
+    log("shard", f"rank 0's local boxes {[c.shape for c in canons_sh]} (x pad {canons_sh[0].pad_x}"
+                 f"), routes {modes_sh} and {modes_bk}: kernels vs plain "
+                 + ", ".join(f"{k} {e[0]:.3e} (rel {e[1]:.2e})" for k, e in err_sh.items())
+                 + "; per apply " + ", ".join(
+                     f"{k} {sh_ms[k]:.4f} ms (plain {sh_plain[k]:.2f} ms, bound "
+                     f"{sh_bounds[k][0]:.4f} ms)" for k in sh_ms)
+                 + f"; CSR A @ x of rank 0's {len(own_rows)} owned rows {csr_own_ms:.4f} ms "
+                   f"({A_own.values().numel()} nonzeros; export {export_sh_s:.2f} s), the "
+                   f"gathered sharded apply within {csr_err / csr_scale:.2e} of it; launches "
+                   f"of the apply per rank {[r['launches'] for r in app]} | {smi}")
+    del args_sh, taus_sh, A_sh, A_own, sys_sh, app
+
+    t = time.perf_counter()
+    dry = pmesh.dryrun_multichip(8, device=dev, timeout=150)
+    dry_s = time.perf_counter() - t
+    log("shard", f"dry-run analog on 8 gloo ranks sharing one card: {dry} in {dry_s:.2f} s")
+    shard_phase_s = time.perf_counter() - t_phase
+    log("shard", f"phase 13 took {shard_phase_s:.2f} s | {smi}")
+
     measured = {
         "fused_tau": (launches["fused_tau"], err["fused_tau"][0], tau_ms, tau_plain_ms,
                       lib_tau_ms),
@@ -1406,7 +1586,15 @@ def main():
             "replaces": REPLACES[name], "launches": n_launch, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": library_ms, **design.get(name, {}),
+            "paths": PATHS[name],
         })
+        if name in sh_ms:   # B6: on rank 0's halo-filled local boxes (phase 13)
+            kernels[-1]["sharded"] = {
+                "launches_per_rank": [r[0 if name.startswith("fused") else 1]["launches"][name]
+                                      for r in runs],
+                "max_abs_err": err_sh[name][0], "ms": sh_ms[name], "plain_ms": sh_plain[name],
+                "bound_ms": sh_bounds[name][0], "bound_by": sh_bounds[name][1],
+                "library_ms": csr_own_ms}
     print(json.dumps({"result": {
         "warm_frame_ms_median": statistics.median(warm), "cold_frame_s": cold_s,
         "build_s": build_s, "cg_iterations": st.iterations, "octree_dofs": st.octree_dofs,
@@ -1442,6 +1630,9 @@ def main():
                     "v1_fused_s": fused_s, "v1_s_32": v1_s, "phase_s": refined_phase_s},
         "tail": {"flip_s": flip_s, "flip_iterations": [s_f.iterations for s_f in flip_stats],
                  "interp_rel": interp_rel, "interp_points": n_pts, "interp_ms": interp_ms},
+        "shard": {"ranks": n_ranks, "warm_frame_s": sharded_warm, "collective_share": share,
+                  "csr_owned_ms": csr_own_ms, "dryrun": dry,
+                  "dryrun_s": dry_s, "phase_s": shard_phase_s},
         "wall_s": time.perf_counter() - T0}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

@@ -2,8 +2,9 @@
 all-level kernels (fused_tau, fused_dt) and its probe kernels (banded_apply,
 stream_floor) against their plain versions, a
 routed solve, a Chebyshev solve and two FLIP frames on the card against the
-same on the CPU, and make_solver's cached topology on the card against
-fresh solves.
+same on the CPU, make_solver's cached topology on the card against fresh
+solves, and the sharded solve on 2 gloo ranks sharing the card (buckling-32
+on both routes, buckling-192) against the single-device card solve.
 
 Nothing here imports JAX, so this file also runs on a machine that has a
 card and no JAX; there the suite's conftest (which sets JAX up) is left out:
@@ -344,3 +345,73 @@ def test_flip_loop_on_card_matches_cpu():
         assert got.velocity[a].is_cuda
         assert float((got.velocity[a].cpu() - want.velocity[a]).abs().max()) / scale < 5e-4
     assert float(got.velocity[1].mean()) < 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["default", "bricked"])
+def test_sharded_solve_on_card_matches_single_device(route):
+    """buckling-32 on 2 gloo ranks sharing the card (the kernels on each
+    rank's halo-filled local boxes; "bricked": a budget that puts level 0
+    of a local box in bricks) against the single-device card solve:
+    iterations within +-2, velocity within rel 5e-4, each rank's launches
+    its applies times its x-row ranges."""
+    from adaptiveviscositysolver_tpu_torch.ops import _build
+    from adaptiveviscositysolver_tpu_torch.parallel import mesh, shard_fused
+
+    _need_card()
+    _build.build()   # once here, not in each rank
+    cfg = SolverConfig(octree_levels=3, tolerance=1e-5)
+    want = solver.solve_viscosity(scenes.buckling(n=32, device="cuda"), DT, cfg)
+    budget = None
+    if route == "bricked":
+        budget = fa.tau_bytes(shard_fused.local_canons([(16, 32, 32)])[0]) / 3
+    ranks = [r[0] for r in mesh.launch(2, mesh.solve_on_ranks, ("buckling", 32), DT, [cfg], 1,
+                                       False, [budget], timeout=240)]
+    st = ranks[0]["stats"]
+    assert all(r["stats"] == st for r in ranks)
+    assert st["solve_path"] == "cuda-sharded" and st["residual"] <= 1e-5
+    assert abs(st["iterations"] - want.stats.iterations) <= 2
+    for r in ranks:
+        assert (route == "bricked") == r["modes"][0].startswith("('brick'"), r["modes"]
+        n = st["applies"]
+        assert r["launches"] == {"fused_tau": n * r["fused"], "fused_dt": n * r["fused"],
+                                 "tau_level": n * r["row_ranges"],
+                                 "dt_level": n * r["row_ranges"]}, r
+    scale = max(float(v.abs().max()) for v in want.velocity)
+    for a in range(3):
+        got = ranks[0]["velocity"][a]
+        assert float((torch.from_numpy(got) - want.velocity[a].cpu()).abs().max()) / scale < 5e-4
+
+
+@pytest.mark.gpu
+def test_sharded_192_frame_on_card_matches_single_device():
+    """buckling-192, one frame on 2 gloo ranks sharing the card against the
+    single-device frame: 4 levels, 820,288 / 2,209,612 DOFs, iterations
+    within +-2, velocity within rel 5e-4 (the full-size case that does not
+    fit chip_smoke.py's deadline; its seconds are printed)."""
+    import time
+
+    from adaptiveviscositysolver_tpu_torch.ops import _build
+    from adaptiveviscositysolver_tpu_torch.parallel import mesh
+
+    _need_card()
+    _build.build()
+    cfg = SolverConfig(octree_levels=4, tolerance=1e-4)
+    t0 = time.perf_counter()
+    want = solver.solve_viscosity(scenes.buckling(n=192, device="cuda"), DT, cfg)
+    single_s = time.perf_counter() - t0
+    ranks = [r[0] for r in mesh.launch(2, mesh.solve_on_ranks, ("buckling", 192), DT, [cfg],
+                                       timeout=600)]
+    st = ranks[0]["stats"]
+    print(f"buckling-192: single-device frame {single_s:.2f} s (cold), 2 ranks sharing one "
+          f"card {ranks[0]['seconds']} s, share in collectives "
+          f"{[sum(r['collective_seconds'].values()) / r['seconds'][-1] for r in ranks]}, "
+          f"{st['iterations']} it vs {want.stats.iterations}, routes {ranks[0]['modes']}")
+    assert all(r["stats"] == st for r in ranks)
+    assert st["solve_path"] == "cuda-sharded" and len(st["active_cells"]) == 4
+    assert (st["octree_dofs"], st["regular_dofs"]) == (820288, 2209612)
+    assert abs(st["iterations"] - want.stats.iterations) <= 2 and st["residual"] <= 1e-4
+    scale = max(float(v.abs().max()) for v in want.velocity)
+    for a in range(3):
+        got = torch.from_numpy(ranks[0]["velocity"][a])
+        assert float((got - want.velocity[a].cpu()).abs().max()) / scale < 5e-4
