@@ -12,6 +12,7 @@ inside the solid.
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 
@@ -50,9 +51,26 @@ def _pair_mean(arr: torch.Tensor, axis: int) -> torch.Tensor:
     return 0.5 * (p[tuple(lo)] + p[tuple(hi)])
 
 
+def sample_at_offset(arr: torch.Tensor, offsets: Sequence[float]) -> torch.Tensor:
+    """Trilinear sample at a uniform offset (in index units) from every point."""
+    out = arr
+    for axis, off in enumerate(offsets):
+        out = _axis_lerp(out, axis, off)
+    return out
+
+
 def cell_to_face_avg(cell_field: torch.Tensor, axis: int) -> torch.Tensor:
     """Cell field at face centers (2-cell clamped mean)."""
     return _pair_mean(cell_field, axis)
+
+
+def cell_to_edge_avg(cell_field: torch.Tensor, axis: int) -> torch.Tensor:
+    """Cell field at the centers of ``axis`` edges (4-cell clamped mean)."""
+    out = cell_field
+    for t in range(3):
+        if t != axis:
+            out = _pair_mean(out, t)
+    return out
 
 
 def _supersample_offsets(num_samples: int):

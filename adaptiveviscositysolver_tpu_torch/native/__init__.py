@@ -5,7 +5,8 @@ export (cpp:245-308) as a C extension, ``avs_native.c`` beside this file.
 The extension is compiled with the host C compiler (``$CC``, default
 ``cc``) at first use into ``build/native/`` at the repository root, under a
 name that carries a hash of the source, and loaded from there; nothing is
-written into the package.  A failed build raises: there is no fallback.
+written into the package.  A failed build raises: there is no fallback;
+``available()`` says whether the build succeeds.
 """
 
 from __future__ import annotations
@@ -55,6 +56,16 @@ def _load():
         spec.loader.exec_module(mod)
         _mod = mod
     return _mod
+
+
+def available() -> bool:
+    """Whether the extension builds and loads here.  A query only: the
+    checks below still raise on a failed build."""
+    try:
+        _load()
+    except (OSError, RuntimeError, ImportError):
+        return False
+    return True
 
 
 def _buffers(labels):

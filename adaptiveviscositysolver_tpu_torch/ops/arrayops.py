@@ -93,15 +93,26 @@ def down_reduce_cells(arr: torch.Tensor, op: str) -> torch.Tensor:
     raise ValueError(op)
 
 
-def block2_sum(arr: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
-    """Sum aligned pairs along ``axes`` (even extents there)."""
+def _block2(arr: torch.Tensor, axes: Sequence[int], op: str) -> torch.Tensor:
+    """Reduce aligned pairs along ``axes`` (even extents there) by ``op``,
+    "sum" or "max"."""
     out = arr
     for d in sorted(axes):
         assert out.shape[d] % 2 == 0, (out.shape, d)
         shp = out.shape[:d] + (out.shape[d] // 2, 2) + out.shape[d + 1:]
         r = out.reshape(shp)
-        out = r.sum(dim=d + 1)
+        out = r.sum(dim=d + 1) if op == "sum" else r.amax(dim=d + 1)
     return out
+
+
+def block2_sum(arr: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+    """Sum aligned pairs along ``axes`` (even extents there)."""
+    return _block2(arr, axes, "sum")
+
+
+def block2_max(arr: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+    """Max of aligned pairs along ``axes`` (even extents there)."""
+    return _block2(arr, axes, "max")
 
 
 def repeat2(arr: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:

@@ -13,11 +13,16 @@ by paired send/recv, all-reduced dots (port of
   unchanged (B6: ``_sharded_apply`` runs ``fused_apply``'s routed level
   pass on each rank's local canonical boxes).
 * **Halo**: a local box has an x pad of ``fused_apply.HALO_X`` (4) rows,
-  the port's own reach (an owned face row reads u up to 3 rows away), not
-  the JAX package's ``MAX_HALO`` constant.  The pads are filled with the
-  neighbours' rows: once per frame for the packed kind bytes and the
-  weights, once per apply for the iterate and the cross-level views, into
-  the apply's scratch (never the CG's vectors, whose ghost rows stay 0).
+  the port's own reach, not the JAX package's ``MAX_HALO`` constant.  The
+  range reach is 4: Dᵀ on a slab reads weighted stresses one row past it,
+  the even τ range that covers them reaches one row further, and τ reads
+  u 2 rows below and 1 above its range (rounded up to even).  Sample by
+  sample an owned row reads u only 2 rows away
+  (``test_owned_rows_read_two_rows_past_the_slab``).  The pads are
+  filled with the neighbours' rows: once per frame for the packed kind
+  bytes and the weights, once per apply for the iterate and the
+  cross-level views, into the apply's scratch (never the CG's vectors,
+  whose ghost rows stay 0).
   A slab narrower than the halo (JAX admits top widths of 1 and lower
   widths of 2) takes its rows from as many ranks as they lie on: ``ceil(
   HALO_X / w)`` hops each side.  Stress rows near a slab edge are computed

@@ -116,6 +116,21 @@ Phases (one line each, elapsed seconds first):
                 (parallel.mesh.dryrun_multichip) on 8 ranks; each frame's
                 seconds and each rank's share of it in collectives (2 ranks
                 on one card measure no scale-out)
+  14 example -- the buckling example's command line at its defaults (5
+                FLIP frames at 64^3), in a subprocess with its own timeout,
+                in a temporary directory: the module run as ``python -m``
+                runs it (runpy), its solves stamped and frame 0's state
+                and velocity kept, followed by its launch counts; exit
+                code 0, 5 stats lines with residual <= 1e-4, 5 PLY files
+                whose header vertex counts equal the lines' and are > 0,
+                launches against the frames' applies; in-process, on
+                frame 0's state: fused_tau and fused_dt against their
+                plain versions at the example's boxes (3e-5 * max), the
+                example's velocity against the float64 v1 solve of the same
+                state (rel 5e-4, iterations +- 2), and the scene's first
+                state solved at dt 1/24 and 1/48 against the JAX package's
+                counts (EXPECT_FIRST_64, +- 2); native.available() and the
+                package's top-level make_solver / solve_viscosity
 
 Phase 3 also runs the make_solver cache: a fresh solver's 3 frames of
 buckling-96 (only the first probes; one cached topology; the cold and cached
@@ -172,9 +187,10 @@ REPLACES = {
     "banded_apply": "tools/calibrate_bandwidth.py:30 (banded_kernel; pallas_call at :63)",
     "stream_floor": "tools/profile_levels.py:128 (dma_kernel; pallas_call at :163)",
 }
-# the paths each kernel runs on (phases 3-13); "sharded": B6, the kernels on
-# a rank's halo-filled local boxes (phase 13)
-_FUSED_PATHS = ["single-device", "chebyshev", "refined", "flip", "sharded"]
+# the paths each kernel runs on (phases 3-14); "sharded": B6, the kernels on
+# a rank's halo-filled local boxes (phase 13); "example": the buckling
+# example's command line (phase 14)
+_FUSED_PATHS = ["single-device", "chebyshev", "refined", "flip", "sharded", "example"]
 _LEVEL_PATHS = ["single-device", "chebyshev", "sharded"]
 PATHS = {"fused_tau": _FUSED_PATHS, "fused_dt": _FUSED_PATHS, "tau_level": _LEVEL_PATHS,
          "dt_level": _LEVEL_PATHS, "banded_apply": ["probe tools"],
@@ -182,6 +198,50 @@ PATHS = {"fused_tau": _FUSED_PATHS, "fused_dt": _FUSED_PATHS, "tau_level": _LEVE
 SOURCE = {"fused_tau": "fused_apply.cu", "fused_dt": "fused_apply.cu",
           "tau_level": "level_apply.cu", "dt_level": "level_apply.cu",
           "banded_apply": "probe_kernels.cu", "stream_floor": "probe_kernels.cu"}
+
+EXAMPLE = "adaptiveviscositysolver_tpu_torch.examples.run_buckling"
+EXAMPLE_FRAMES = 5          # the example's defaults: 5 frames at 64^3
+EXAMPLE_TIMEOUT_S = 120
+# runs the example as ``python -m`` does (runpy), stamping each frame's solve
+# and keeping frame 0's state and solved velocity in the working directory;
+# then prints the kernels' launch counts and the stamps
+_EXAMPLE_RUNNER = f"""
+import json, runpy, sys, time
+import torch
+from adaptiveviscositysolver_tpu_torch.models import flip
+from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
+from adaptiveviscositysolver_tpu_torch.utils import checkpoint
+
+solve, kept, stamps = flip.solve_viscosity, [], []
+def solve_and_keep(state, dt, config, device):
+    out = solve(state, dt, config, device=device)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    if not kept:
+        kept.extend([state, out.velocity])
+    return out
+flip.solve_viscosity = solve_and_keep
+fa.reset_launch_counts()
+sys.argv = [{EXAMPLE!r}]
+code = 0
+try:
+    runpy.run_module({EXAMPLE!r}, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code or 0
+launches = dict(fa.launch_counts)
+if kept:
+    checkpoint.save("frame0_state", kept[0])
+    torch.save([v.cpu() for v in kept[1]], "frame0_velocity.pt")
+print("runner " + json.dumps({{"launches": launches, "solve_end_s": stamps}}), flush=True)
+sys.exit(code)
+"""
+# the JAX package's CG iterations of scenes.buckling(64)'s own first state
+# (SolverConfig(octree_levels=4, tolerance=1e-4), float32, make_solver) at
+# the FLIP-64 step and the example's, from
+#     PYTHONPATH=. JAX_PLATFORMS=cpu python tools/jax_flip_counts.py 64 5
+EXPECT_FIRST_64 = {"1/24": 136, "1/48": 129}
+_FRAME_LINE = re.compile(r"frame +(\d+): iters= *(\d+) residual=(\S+) octree_dofs=(\d+) "
+                         r"active_cells=\[([\d, ]*)\] ply=(\d+)pts -> (\S+)$")
 
 T0 = time.perf_counter()
 
@@ -487,6 +547,21 @@ def csr_yardstick(sys_, u_log, levels, reps):
         grids[(l, a)] = torch.from_numpy(np.where(idx >= 0, y[np.clip(idx, 0, None)], 0.0)
                                          .astype(np.float32)).to(dev)
     return ms, tau_ms, grids, export_s, (int(A.nnz), int(WD.nnz))
+
+
+def run_example(workdir):
+    """The example's command line in ``workdir`` (a subprocess, killed at its
+    timeout): (exit code, its output lines, the runner's record)."""
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    proc = subprocess.run([sys.executable, "-c", _EXAMPLE_RUNNER], cwd=workdir, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          timeout=EXAMPLE_TIMEOUT_S)
+    lines = proc.stdout.splitlines()
+    record = next((json.loads(ln[len("runner "):]) for ln in lines if ln.startswith("runner ")),
+                  None)
+    return proc.returncode, [ln for ln in lines if not ln.startswith("runner ")], record
 
 
 def main():
@@ -1338,8 +1413,8 @@ def main():
     launches_f = dict(fa.launch_counts)
     vy = float(flip_out.velocity[1].mean())
     log("tail", f"FLIP buckling-{n_f}, 3 frames in {flip_s:.2f} s: "
-                + "; ".join(f"{s.solve_path} {s.iterations} it residual {s.residual:.2e}"
-                            for s in flip_stats)
+                + "; ".join(f"{s.solve_path} {s.iterations} it residual {s.residual:.2e} "
+                            f"{s.octree_dofs} DOFs" for s in flip_stats)
                 + f" | launches {launches_f} | mean vertical velocity {vy:.4f}")
     for s_f in flip_stats:
         assert s_f.solve_path == "cuda" and s_f.residual <= 1e-4, s_f
@@ -1564,6 +1639,84 @@ def main():
     shard_phase_s = time.perf_counter() - t_phase
     log("shard", f"phase 13 took {shard_phase_s:.2f} s | {smi}")
 
+    # ---- 14 example: the buckling example's command line, as a user runs it
+    import tempfile
+
+    from adaptiveviscositysolver_tpu_torch import make_solver, solve_viscosity
+    from adaptiveviscositysolver_tpu_torch.examples import run_buckling
+
+    t_phase = time.perf_counter()
+    assert make_solver is solver.make_solver and solve_viscosity is solver.solve_viscosity
+    assert native.available()
+    with tempfile.TemporaryDirectory(prefix="avs_example_") as work:
+        rc_ex, lines_ex, rec_ex = run_example(work)
+        for line in lines_ex:
+            log("example", line)
+        assert rc_ex == 0 and rec_ex, f"the example exited {rc_ex}"
+        frames_ex = [_FRAME_LINE.match(line) for line in lines_ex if line.startswith("frame ")]
+        assert all(frames_ex), lines_ex
+        assert [int(m.group(1)) for m in frames_ex] == list(range(EXAMPLE_FRAMES)), lines_ex
+        ply_ex = []
+        for m in frames_ex:
+            assert float(m.group(3)) <= 1e-4, m.group(0)
+            ply = Path(work) / m.group(7)
+            head = ply.read_bytes()[:200]
+            n_ply = int(head.split(b"element vertex ")[1].split(b"\n")[0])
+            assert n_ply == int(m.group(6)) > 0, (ply, n_ply, m.group(0))
+            ply_ex.append(n_ply)
+        plys = sorted(p.name for p in (Path(work) / "out_buckling_torch").iterdir())
+        assert plys == [f"frame_{i:03d}.ply" for i in range(EXAMPLE_FRAMES)], plys
+        state_ex, _ = checkpoint.load(str(Path(work) / "frame0_state"), device=dev)
+        vel_ex = [v.to(dev) for v in torch.load(Path(work) / "frame0_velocity.pt")]
+    launches_ex = rec_ex["launches"]
+    iters_ex = [int(m.group(2)) for m in frames_ex]
+    check_launches(launches_ex, sum(i + 1 for i in iters_ex), canons_f, modes_f, "example")
+    stamps = rec_ex["solve_end_s"]
+    frame_ex_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    totals = [re.match(r"total: (\d+) frames in ([\d.]+)s$", line) for line in lines_ex]
+    total_ex = next((m for m in totals if m), None)
+    assert total_ex and int(total_ex.group(1)) == EXAMPLE_FRAMES, lines_ex
+
+    # the kernels at the example's boxes, on the system of its frame 0
+    sys_ex = solver.build_system(state_ex, run_buckling.DT, run_buckling.CONFIG, device=dev)
+    assert sys_ex.canons == canons_f and sys_ex.modes == modes_f == ["fused"] * 4, sys_ex.modes
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    u_ex = sys_ex.embed_tree({k: torch.randn(m.shape, generator=gen).to(dev) * m
+                              for k, m in sys_ex.active.items()})
+    e_ex = routed_errors(sys_ex.apply_A.level_args(u_ex), sys_ex.apply_A.metas, sys_ex.canons,
+                         sys_ex.modes, enh, "example")
+    err = {k: worst(err[k], e_ex[k]) if k in e_ex else err[k] for k in err}
+    del sys_ex, u_ex
+    # the example's frame-0 velocity against the float64 whole-array solve of its state
+    want_ex = solver.solve_viscosity(state_ex, run_buckling.DT,
+                                     dataclasses.replace(run_buckling.CONFIG, dtype=torch.float64),
+                                     device=dev)
+    scale_ex = max(float(v.abs().max()) for v in want_ex.velocity)
+    rel_ex = max(float((g.double() - w).abs().max()) for g, w in zip(vel_ex, want_ex.velocity))
+    rel_ex /= scale_ex
+    log("example", f"frame 0 at the example's boxes "
+                   f"{[c.shape for c in canons_f]}: fused_tau vs plain max abs "
+                   f"{e_ex['fused_tau'][0]:.3e} (rel {e_ex['fused_tau'][1]:.2e}), fused_dt "
+                   f"{e_ex['fused_dt'][0]:.3e} (rel {e_ex['fused_dt'][1]:.2e}); velocity vs "
+                   f"float64 v1 ({want_ex.stats.iterations} it) {rel_ex:.2e} of max")
+    assert want_ex.stats.solve_path == "v1" and want_ex.stats.residual <= 1e-4
+    assert abs(iters_ex[0] - want_ex.stats.iterations) <= 2, (iters_ex, want_ex.stats)
+    assert rel_ex < 5e-4, rel_ex
+    del want_ex, vel_ex, state_ex
+    # the step's own effect on the count: the scene's first state at both steps
+    solve_first = make_solver(run_buckling.CONFIG, device=dev)
+    first_ex = {name: solve_first(scenes.buckling(n=n_f, device=dev), step).stats.iterations
+                for name, step in (("1/24", 1.0 / 24.0), ("1/48", run_buckling.DT))}
+    example_phase_s = time.perf_counter() - t_phase
+    log("example", f"buckling-{n_f}'s first state: {first_ex} iterations at dt 1/24 and 1/48 "
+                   f"(JAX {EXPECT_FIRST_64})")
+    for name, want_it in EXPECT_FIRST_64.items():
+        assert abs(first_ex[name] - want_it) <= 2, (first_ex, EXPECT_FIRST_64)
+    log("example", f"{EXAMPLE_FRAMES} frames at {n_f}^3: iterations {iters_ex}, frames 1-4 "
+                   f"{[round(x, 3) for x in frame_ex_s]} s apart (solve ends), script total "
+                   f"{total_ex.group(2)} s, launches {launches_ex}; phase 14 took "
+                   f"{example_phase_s:.2f} s | {smi}")
+
     measured = {
         "fused_tau": (launches["fused_tau"], err["fused_tau"][0], tau_ms, tau_plain_ms,
                       lib_tau_ms),
@@ -1633,6 +1786,10 @@ def main():
         "shard": {"ranks": n_ranks, "warm_frame_s": sharded_warm, "collective_share": share,
                   "csr_owned_ms": csr_own_ms, "dryrun": dry,
                   "dryrun_s": dry_s, "phase_s": shard_phase_s},
+        "example": {"n": n_f, "frame_s": frame_ex_s, "total_s": float(total_ex.group(2)),
+                    "iterations": iters_ex, "ply_points": ply_ex, "launches": launches_ex,
+                    "velocity_vs_v1_rel": rel_ex, "first_state_iterations": first_ex,
+                    "phase_s": example_phase_s},
         "wall_s": time.perf_counter() - T0}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

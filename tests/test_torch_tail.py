@@ -1,18 +1,21 @@
 """The port's host tail vs the JAX package: checkpoint files, the FLIP
-demo loop, the point interpolator, the octree's refine and geometry
-export, and the native checks.
+demo loop and the buckling example around it, the point interpolator, the
+octree's refine and geometry export, and the native checks.
 
 The same numpy inputs go through the JAX function and the port's, on the
 CPU in float64.  Bars: checkpoint arrays equal across the two packages
 both ways; advection and gravity to rtol 1e-12; one FLIP step (2 levels,
 tests/test_misc.py's configuration) with iterations +-1 and velocity within
-1e-6 * max; interp_at to rtol 1e-12 on tests/test_interpolator.py's
+1e-6 * max; the example's frames on the same loop with iterations +-1,
+DOFs, ACTIVE cells and PLY vertex counts exact and frame 0's PLY byte for
+byte the JAX example's; interp_at to rtol 1e-12 on tests/test_interpolator.py's
 fixtures; the octree's refinement, geometry and the native checks and PLY
 exactly.  The jitted JAX calls are the ones those JAX tests make, so their
 compiles are shared.
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -30,8 +33,10 @@ from adaptiveviscositysolver_tpu.config import SolverConfig as JConfig
 from adaptiveviscositysolver_tpu.models import flip as jflip
 from adaptiveviscositysolver_tpu.utils import checkpoint as jcheckpoint
 from adaptiveviscositysolver_tpu_torch import convert, interpolator, native, octree, solver
-from adaptiveviscositysolver_tpu_torch.config import SolverConfig
+from adaptiveviscositysolver_tpu_torch.config import SolverConfig, capped_levels
+from adaptiveviscositysolver_tpu_torch.examples import run_buckling
 from adaptiveviscositysolver_tpu_torch.models import flip
+from adaptiveviscositysolver_tpu_torch.tools import flip_counts
 from adaptiveviscositysolver_tpu_torch.utils import checkpoint
 from tests.oracle import reference_oracle as oracle
 from tests.test_operator import build_case
@@ -98,11 +103,25 @@ def test_advect_and_gravity_match_jax(flip_state):
         exact(getattr(got, f), getattr(want, f), f)
 
 
-def test_flip_step_matches_jax(flip_state):
+FLIP_CFG = JConfig(octree_levels=2, max_iterations=40, tolerance=1e-5)
+
+
+@pytest.fixture(scope="module")
+def jax_flip(flip_state):
+    """tests/test_misc.py's loop (2 levels, dt 1/48, 2 frames) through the
+    JAX package, once per module: (final state, stats per frame, state after
+    each frame)."""
+    frames = []
+    want, jstats = jflip.simulate(flip_state, frames=2, dt=1 / 48.0, config=FLIP_CFG,
+                                  on_frame=lambda i, s, st: frames.append(s))
+    return want, jstats, frames
+
+
+def test_flip_step_matches_jax(flip_state, jax_flip):
     """tests/test_misc.py's loop (2 levels, dt 1/48, 2 frames): each frame's
     iterations within +-1, velocity within 1e-6 * max, the column falling."""
-    cfg = JConfig(octree_levels=2, max_iterations=40, tolerance=1e-5)
-    want, jstats = jflip.simulate(flip_state, frames=2, dt=1 / 48.0, config=cfg)
+    cfg = FLIP_CFG
+    want, jstats, _ = jax_flip
     seen = []
     got, stats = flip.simulate(port_from_jax(flip_state), 2, 1 / 48.0,
                                convert.config_from_jax_fields(**dataclasses.asdict(cfg)),
@@ -115,6 +134,90 @@ def test_flip_step_matches_jax(flip_state):
         assert np.abs(N(got.velocity[a]) - np.asarray(want.velocity[a])).max() <= 1e-6 * scale
     close(got.liquid_sdf, want.liquid_sdf, "sdf", rtol=1e-9)
     assert float(got.velocity[1].mean()) < 0.0
+
+
+def _ply_vertices(path) -> int:
+    head = path.read_bytes()[:200]
+    return int(head.split(b"element vertex ")[1].split(b"\n")[0])
+
+
+def _jax_example_labels(state, levels):
+    """examples/run_buckling.py's labels of a JAX state."""
+    dx = state.dx
+    return [np.asarray(l) for l in joctree.build_octree(joctree.build_refinement_mask(
+        state.liquid_sdf, state.solid_sdf, dx, FLIP_CFG.extrapolation * dx, 3 * dx, 2 * dx),
+        levels)]
+
+
+def test_run_buckling_matches_jax(flip_state, jax_flip, tmp_path):
+    """The example's run() on the FLIP fixture: iterations within +-1 of the
+    JAX loop's, its DOFs and ACTIVE cells per level equal, each PLY's
+    vertex count that of the ACTIVE cells of the JAX example's labels of
+    the frame, and frame 0's PLY byte for byte the JAX example's."""
+    _, jstats, jframes = jax_flip
+    recs = run_buckling.run(port_from_jax(flip_state), 2, 1 / 48.0,
+                            convert.config_from_jax_fields(**dataclasses.asdict(FLIP_CFG)),
+                            tmp_path / "out", device="cpu")
+    assert [r["frame"] for r in recs] == [0, 1]
+    levels = capped_levels(tuple(flip_state.liquid_sdf.shape), FLIP_CFG.octree_levels)
+    for rec, jst, jstate in zip(recs, jstats, jframes):
+        assert abs(rec["iterations"] - int(jst.iterations)) <= 1, (rec, jst)
+        assert rec["octree_dofs"] == int(jst.octree_dofs)
+        assert rec["active_cells"] == [int(c) for c in np.asarray(jst.active_cells)]
+        jlabels = _jax_example_labels(jstate, levels)
+        n_active = sum(int((l == oracle.ACTIVE).sum()) for l in jlabels)
+        path = Path(rec["path"])
+        assert path.parent == tmp_path / "out" and path.name == f"frame_{rec['frame']:03d}.ply"
+        assert _ply_vertices(path) == rec["ply_points"] == n_active > 0
+    jpath = tmp_path / "jax_frame_000.ply"
+    jnative.export_octree_ply(_jax_example_labels(jframes[0], levels), flip_state.dx, str(jpath))
+    assert Path(recs[0]["path"]).read_bytes() == jpath.read_bytes()
+
+
+def test_run_buckling_command_line(monkeypatch):
+    """main()'s arguments (the JAX script's: frames, n; 5 and 64 by
+    default) and its refusal to run without a card, before any solve."""
+    a = run_buckling.parse_args(["2", "16"])
+    assert (a.frames, a.n) == (2, 16)
+    a = run_buckling.parse_args([])
+    assert (a.frames, a.n) == (5, 64)
+    assert run_buckling.OUTDIR == "out_buckling_torch" and run_buckling.DT == 1 / 48.0
+    assert (run_buckling.CONFIG.octree_levels, run_buckling.CONFIG.tolerance) == (4, 1e-4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(run_buckling, "run", lambda *a, **k: pytest.fail("solved"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_buckling.main(["2", "16"])
+
+
+def test_flip_counts_frames_match_jax(flip_state, jax_flip):
+    """tools.flip_counts' frames (models.flip.step with each frame's state
+    kept for a second, float64 v1 solve) on the FLIP fixture: iterations
+    within +-1 of the JAX loop's, DOFs equal, each frame's velocity within
+    1e-6 * max of its v1 solve."""
+    _, jstats, _ = jax_flip
+    rec = flip_counts.frame_counts(port_from_jax(flip_state), 2, 1 / 48.0,
+                                   convert.config_from_jax_fields(**dataclasses.asdict(FLIP_CFG)),
+                                   v1=True, device="cpu")
+    assert rec["solve_path"] == rec["v1_path"] == "v1"
+    for it, dofs, jst in zip(rec["frame_iterations"], rec["octree_dofs"], jstats):
+        assert abs(it - int(jst.iterations)) <= 1 and dofs == int(jst.octree_dofs), (rec, jst)
+    assert len(rec["velocity_vs_v1_rel"]) == 2 and max(rec["velocity_vs_v1_rel"]) <= 1e-6
+
+
+def test_flip_counts_command_line(monkeypatch, capsys):
+    """The tool's defaults (the example's 64^3 and 5 frames at both steps)
+    and its refusal to run without a card, before any solve."""
+    assert flip_counts.STEPS == {"1/24": 1 / 24.0, "1/48": run_buckling.DT}
+    assert flip_counts.CONFIG == run_buckling.CONFIG
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(flip_counts, "counts", lambda *a, **k: pytest.fail("solved"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flip_counts.main(["16", "2"])
+    monkeypatch.setattr(flip_counts, "counts", lambda *a: {"args": list(a)})
+    assert flip_counts.main(["--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == ['{"args": [64, 5, "1/24", false, "cpu"]}',
+                     '{"args": [64, 5, "1/48", false, "cpu"]}']
 
 
 def test_flip_positions_are_float32():
