@@ -1,0 +1,23 @@
+"""Apply and kernels (``ops.fused_apply``, ``csrc/``): the least time the
+CG's bytes need at the data sheet's 3.35 TB/s (``roofline.solve_bytes``
+over the windows the frame used, from ``solve.cache_info()``) over the
+device-busy time inside the program's ``solve`` span, in percent, over the
+profiled frames that dispatched once.  The same work is counted whatever
+implements the apply."""
+
+import roofline
+
+
+def read(run):
+    need_s = busy_s = 0.0
+    traced = run["trace"]["frames"]
+    profiled = run["profiled_frames"]
+    if len(traced) != len(profiled):
+        return None
+    for rec, tr in zip(profiled, traced):
+        if len(tr["solve_busy_us"]) != 1 or not rec.get("windows") or not tr["solve_busy_us"][0]:
+            continue
+        windows = rec["windows"][:rec["levels"]]
+        need_s += roofline.solve_bytes(windows, rec["iterations"]) / roofline.HBM_BYTES_PER_S
+        busy_s += tr["solve_busy_us"][0] / 1e6
+    return 100.0 * need_s / busy_s if busy_s > 0 else None
