@@ -29,7 +29,7 @@ from .ops.arrayops import (
     upread_adjoint,
 )
 from .stencils import StressBlock, StressTerm
-from .utils import cancel
+from .utils import cancel, trace
 
 UField = Dict[Tuple[int, int], torch.Tensor]
 
@@ -147,6 +147,12 @@ def make_packer(shapes: Dict[Tuple[int, int], Tuple[int, int, int]]):
     return pack, unpack
 
 
+def _above(rr: torch.Tensor, threshold: torch.Tensor) -> bool:
+    """The CG's stop test, read back: the host waits here for the device."""
+    with trace.span("cg.converged"):
+        return bool(rr > threshold)
+
+
 def _flat_pcg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
               x0: torch.Tensor, invd: torch.Tensor, threshold: torch.Tensor,
               max_iterations: int, precond: Optional[Callable] = None, cancel_poll: int = 0,
@@ -158,8 +164,10 @@ def _flat_pcg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     ``cancel_poll > 0``: every that-many iterations, after the increment,
     read ``utils.cancel``'s flag and stop before the next iteration when it
     is set.  ``dot``: the inner product (a sharded solve's sums the ranks'
-    local dots: parallel/shard_fused.py); 3 + 3 per iteration.  Returns
-    (x, iterations, ||r||^2)."""
+    local dots: parallel/shard_fused.py); 3 + 3 per iteration.  Spans
+    (``utils/trace.py``): ``cg.converged`` around each stop test, and per
+    iteration ``cg.vector`` twice and ``cg.precond`` once, sampled for the
+    profiler as a :class:`trace.loop`.  Returns (x, iterations, ||r||^2)."""
     if precond is None:
         def precond(r):
             return invd * r
@@ -170,19 +178,24 @@ def _flat_pcg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     p = z
     x = x0
     it = 0
-    while it < max_iterations and bool(rr > threshold):
-        ap = A(p)
-        alpha = rz / dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rr = dot(r, r)
-        z = precond(r)
-        rz_new = dot(r, z)
-        p = z + (rz_new / rz) * p
-        rz = rz_new
-        it += 1
-        if cancel_poll > 0 and it % cancel_poll == 0 and cancel.is_requested():
-            break
+    with trace.loop() as lp:
+        while it < max_iterations and _above(rr, threshold):
+            ap = A(p)
+            with trace.span("cg.vector"):
+                alpha = rz / dot(p, ap)
+                x = x + alpha * p
+                r = r - alpha * ap
+                rr = dot(r, r)
+            with trace.span("cg.precond"):
+                z = precond(r)
+            with trace.span("cg.vector"):
+                rz_new = dot(r, z)
+                p = z + (rz_new / rz) * p
+                rz = rz_new
+            it += 1
+            lp.at(it)
+            if cancel_poll > 0 and it % cancel_poll == 0 and cancel.is_requested():
+                break
     return x, it, rr
 
 
@@ -250,7 +263,8 @@ def pcg_flat(apply_A, rhs: UField, x0: UField, diag: UField, tolerance: float,
     def A(flat):
         nonlocal applies
         applies += 1
-        return pack(apply_A(unpack(flat)))
+        with trace.span("cg.apply"):
+            return pack(apply_A(unpack(flat)))
 
     b = pack(rhs)
     invd = 1.0 / pack(diag)
@@ -284,12 +298,14 @@ def pcg_refined(apply_A_hi, apply_A_lo, rhs: UField, x0: UField, diag: UField,
     def A_hi(flat):
         nonlocal applies
         applies += 1
-        return pack(apply_A_hi(unpack(flat)))
+        with trace.span("cg.apply"):
+            return pack(apply_A_hi(unpack(flat)))
 
     def A_lo(flat):
         nonlocal applies
         applies += 1
-        return pack(apply_A_lo(unpack(flat)))
+        with trace.span("cg.apply"):
+            return pack(apply_A_lo(unpack(flat)))
 
     b = pack(rhs)
     x = pack(x0)
@@ -300,7 +316,7 @@ def pcg_refined(apply_A_hi, apply_A_lo, rhs: UField, x0: UField, diag: UField,
     itol2 = torch.tensor(inner_tolerance, dtype=lo, device=b.device) ** 2
     r = b - A_hi(x)
     total = outer = 0
-    while bool(torch.dot(r, r) > threshold) and total < max_iterations and outer < max_outer:
+    while _above(torch.dot(r, r), threshold) and total < max_iterations and outer < max_outer:
         r_lo = r.to(lo)
         inner_threshold = itol2 * torch.dot(r_lo, r_lo)
         d, it, _ = _flat_pcg(A_lo, r_lo, torch.zeros_like(r_lo), invd_lo, inner_threshold,

@@ -65,6 +65,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils import trace
 from .arrayops import (edge_shape, face_shape, gather_offset, node_shape, transverse_blocksum,
                        upread)
 
@@ -1165,8 +1166,9 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
     views, :func:`make_level_pass` runs the kernels of each level's route
     (``modes``, ``buffers``, ``plain``: see there), and
     :func:`join_levels` adds the zp/zc adjoints masked to the receiving
-    level.  A returned grid of a one-level operator is a buffer that the
-    next apply overwrites."""
+    level, in the spans ``apply.views``, ``apply.kernels`` and
+    ``apply.join`` (``utils/trace.py``).  A returned grid of a one-level
+    operator is a buffer that the next apply overwrites."""
     levels = len(res_per_level)
     run = make_level_pass(frame, canons, dx, enhanced, plain=plain, modes=modes,
                           buffers=buffers)
@@ -1192,7 +1194,12 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
         return args
 
     def apply_A(u: UField) -> UField:
-        return join_levels(run(level_args(u)), canons, active_c)
+        with trace.span("apply.views"):
+            args = level_args(u)
+        with trace.span("apply.kernels"):
+            res = run(args)
+        with trace.span("apply.join"):
+            return join_levels(res, canons, active_c)
 
     apply_A.metas = run.metas
     apply_A.level_args = level_args

@@ -15,9 +15,7 @@ on device tensors, and the CG loop is a Python loop.
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -26,6 +24,7 @@ from . import classify, fields, interpolator, octree, operator, restriction, ste
 from .config import SolverConfig, capped_levels
 from .ops import fused_apply
 from .ops.arrayops import pad_const
+from .utils import trace
 
 
 @dataclasses.dataclass
@@ -133,36 +132,6 @@ def _pad_state(state: FluidState, target: Sequence[int]) -> FluidState:
     )
 
 
-class _StageClock:
-    """Per-stage ranges: always a ``torch.profiler.record_function`` span
-    (a few microseconds, no sync; a profiler trace reads the stages off
-    it), and wall times when the caller asks for them, which synchronizes
-    the device at each boundary."""
-
-    def __init__(self, out: Optional[Dict[str, float]], device: torch.device):
-        self.out = out
-        self.device = device
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        with torch.profiler.record_function(name):
-            with self._timed(name):
-                yield
-
-    @contextlib.contextmanager
-    def _timed(self, name: str):
-        if self.out is None:
-            yield
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.out[name] = self.out.get(name, 0.0) + time.perf_counter() - t0
-
-
 @dataclasses.dataclass
 class System:
     """Everything solve_viscosity builds before the CG (see build_system)."""
@@ -210,11 +179,12 @@ class Topology:
 
     def fill(self, res_per_level, windows, device) -> None:
         if self.canons is None:
-            canons = fused_apply.level_canons(res_per_level, windows)
-            self.modes = fused_apply.level_modes(canons, fused_apply.route_budget(device))
-            self.canons = fused_apply.route_canons(canons, self.modes)
-            self.buffers = fused_apply.operator_buffers(self.canons, self.modes, device)
-            self.res_per_level, self.windows = list(res_per_level), windows
+            with trace.span("topology.build"):
+                canons = fused_apply.level_canons(res_per_level, windows)
+                self.modes = fused_apply.level_modes(canons, fused_apply.route_budget(device))
+                self.canons = fused_apply.route_canons(canons, self.modes)
+                self.buffers = fused_apply.operator_buffers(self.canons, self.modes, device)
+                self.res_per_level, self.windows = list(res_per_level), windows
         elif (self.res_per_level, self.windows) != (list(res_per_level), windows):
             raise ValueError(f"this topology was built for levels {self.res_per_level} and "
                              f"windows {self.windows}, not {res_per_level} and {windows}")
@@ -247,108 +217,109 @@ def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *
     ``mesh_n > 1``: pad x for a CG sharded over that many ranks and leave
     the fused operator to it (``apply_A`` None for "cuda")."""
     device = torch.device(device)
-    _validate_state(state)
-    state = state.to(device=device, dtype=config.dtype)
-    clock = _StageClock(stage_times, device)
-    dx = state.dx
-    extrapolation = config.extrapolation * dx
-    orig_res = tuple(state.liquid_sdf.shape)
-    levels = capped_levels(orig_res, config.octree_levels)
-    lv_pad = levels if pad_levels is None else max(levels, capped_levels(orig_res, pad_levels))
-    target = padded_shape(orig_res, lv_pad, mesh_n)
-    if face_weights is not None:
-        face_weights = [torch.as_tensor(w, device=device) for w in face_weights]
-    if target != orig_res:
-        state = _pad_state(state, target)
+    with trace.tracing(stage_times, device):
+        _validate_state(state)
+        state = state.to(device=device, dtype=config.dtype)
+        dx = state.dx
+        extrapolation = config.extrapolation * dx
+        orig_res = tuple(state.liquid_sdf.shape)
+        levels = capped_levels(orig_res, config.octree_levels)
+        lv_pad = levels if pad_levels is None else max(levels, capped_levels(orig_res, pad_levels))
+        target = padded_shape(orig_res, lv_pad, mesh_n)
         if face_weights is not None:
-            pads = tuple((0, int(t) - int(s)) for s, t in zip(orig_res, target))
-            face_weights = [pad_const(w, pads, 0) for w in face_weights]
-    liquid, solid = state.liquid_sdf, state.solid_sdf
-    if bboxes is not None and len(bboxes) != levels:
-        raise ValueError(f"bboxes has {len(bboxes)} levels, solve has {levels}; "
-                         "pass the level count probe_topology returned")
+            face_weights = [torch.as_tensor(w, device=device) for w in face_weights]
+        if target != orig_res:
+            state = _pad_state(state, target)
+            if face_weights is not None:
+                pads = tuple((0, int(t) - int(s)) for s, t in zip(orig_res, target))
+                face_weights = [pad_const(w, pads, 0) for w in face_weights]
+        liquid, solid = state.liquid_sdf, state.solid_sdf
+        if bboxes is not None and len(bboxes) != levels:
+            raise ValueError(f"bboxes has {len(bboxes)} levels, solve has {levels}; "
+                             "pass the level count probe_topology returned")
 
-    with clock("compute_surface_weights"):
-        center_w, edge_w = fields.integration_weights(
-            liquid, solid, config.num_supersamples, extrapolation, config.apply_solid_weights)
-        if face_weights is None:
-            face_w = fields.face_weights(liquid, solid, config.num_supersamples,
-                                         extrapolation, config.apply_solid_weights)
-        else:
-            face_w = list(face_weights)
+        with trace.stage("compute_surface_weights"):
+            center_w, edge_w = fields.integration_weights(
+                liquid, solid, config.num_supersamples, extrapolation, config.apply_solid_weights)
+            if face_weights is None:
+                face_w = fields.face_weights(liquid, solid, config.num_supersamples,
+                                             extrapolation, config.apply_solid_weights)
+            else:
+                face_w = list(face_weights)
 
-    with clock("build_octree"):
-        inner_band = dx * max(2.0, float(config.fine_bandwidth))
-        mask = octree.build_refinement_mask(liquid, solid, dx, extrapolation, 3.0 * dx,
-                                            inner_band)
-        labels = octree.build_octree(mask, levels)
+        with trace.stage("build_octree"):
+            inner_band = dx * max(2.0, float(config.fine_bandwidth))
+            mask = octree.build_refinement_mask(liquid, solid, dx, extrapolation, 3.0 * dx,
+                                                inner_band)
+            labels = octree.build_octree(mask, levels)
 
-    with clock("build_labels"):
-        vel_kinds = classify.classify_octree_velocity(labels, center_w, edge_w, solid,
-                                                      extrapolation)
-        edge_kinds = classify.classify_edge_stress(labels, edge_w)
-        center_kinds = classify.classify_center_stress(labels, center_w)
-        regular_kinds = [classify.classify_regular_velocity(center_w, edge_w, solid,
-                                                            extrapolation, a)
-                         for a in range(3)]
+        with trace.stage("build_labels"):
+            vel_kinds = classify.classify_octree_velocity(labels, center_w, edge_w, solid,
+                                                          extrapolation)
+            edge_kinds = classify.classify_edge_stress(labels, edge_w)
+            center_kinds = classify.classify_center_stress(labels, center_w)
+            regular_kinds = [classify.classify_regular_velocity(center_w, edge_w, solid,
+                                                                extrapolation, a)
+                             for a in range(3)]
 
-    res_per_level = [tuple(l.shape) for l in labels]
-    if bboxes is not None:
-        # clamp the probe windows to this solve's level resolutions
-        bboxes = tuple(
-            tuple((min(int(b[d][0]), max(0, (res[d] - 2) & ~1)), min(int(b[d][1]), res[d]))
-                  for d in range(3))
-            for b, res in zip(bboxes, res_per_level))
-    active = {(l, a): vel_kinds[l][a] == classify.FLUID for l in range(levels) for a in range(3)}
+        res_per_level = [tuple(l.shape) for l in labels]
+        if bboxes is not None:
+            # clamp the probe windows to this solve's level resolutions
+            bboxes = tuple(
+                tuple((min(int(b[d][0]), max(0, (res[d] - 2) & ~1)), min(int(b[d][1]), res[d]))
+                      for d in range(3))
+                for b, res in zip(bboxes, res_per_level))
+        active = {(l, a): vel_kinds[l][a] == classify.FLUID
+                  for l in range(levels) for a in range(3)}
 
-    with clock("build_stress_stencils"):
-        sdtype = state.viscosity.dtype
-        blocks = stencils.build_edge_stress_blocks(
-            labels, vel_kinds, edge_kinds, edge_w, state.viscosity, state.solid_velocity,
-            dt, dx, config,
-        ) + stencils.build_center_stress_blocks(
-            labels, vel_kinds, center_kinds, center_w, state.viscosity, state.solid_velocity,
-            dt, dx, config,
-        )
-        mass = stencils.build_mass(labels, vel_kinds, face_w, state.density)
+        with trace.stage("build_stress_stencils"):
+            sdtype = state.viscosity.dtype
+            blocks = stencils.build_edge_stress_blocks(
+                labels, vel_kinds, edge_kinds, edge_w, state.viscosity, state.solid_velocity,
+                dt, dx, config,
+            ) + stencils.build_center_stress_blocks(
+                labels, vel_kinds, center_kinds, center_w, state.viscosity, state.solid_velocity,
+                dt, dx, config,
+            )
+            mass = stencils.build_mass(labels, vel_kinds, face_w, state.density)
 
-    with clock("restrict_velocity"):
-        guess_raw = restriction.restrict_velocity_pyramid(
-            [v.to(sdtype) for v in state.velocity], levels)
-        zero = torch.zeros((), dtype=sdtype, device=device)
-        guess = {k: torch.where(active[k], guess_raw[k], zero) for k in active}
+        with trace.stage("restrict_velocity"):
+            guess_raw = restriction.restrict_velocity_pyramid(
+                [v.to(sdtype) for v in state.velocity], levels)
+            zero = torch.zeros((), dtype=sdtype, device=device)
+            guess = {k: torch.where(active[k], guess_raw[k], zero) for k in active}
 
-    with clock("build_system"):
-        v1_apply, diag = operator.make_operator(blocks, mass, active, res_per_level)
-        rhs = operator.boundary_rhs(blocks, mass, guess, active, res_per_level)
-        impl = config.apply_impl
-        refined = config.use_iterative_refinement
-        if impl == "auto":
-            on_card = device.type == "cuda" and (sdtype == torch.float32 or refined)
-            impl = "cuda" if on_card or mesh_n > 1 else "v1"
-        if impl == "cuda" and sdtype != torch.float32 and not refined:
-            raise ValueError("apply_impl='cuda' computes in float32; for a float64 solve "
-                             "use use_iterative_refinement=True (float32 inner CG through "
-                             "the fused apply, float64 residual) or apply_impl='v1'")
-        # "v1-fused" runs the "v1" operator: the JAX package rebuilds the
-        # coefficients inside each apply to save memory, with the same numbers
-        sys_ = System(state, orig_res, levels, impl, labels, vel_kinds, regular_kinds,
-                      res_per_level, active, v1_apply, v1_apply, rhs, guess, diag,
-                      blocks=blocks, mass=mass, mask=mask, edge_kinds=edge_kinds,
-                      center_kinds=center_kinds)
-        if impl == "cuda" and mesh_n > 1:
-            sys_.apply_A = None   # parallel/shard_fused builds each rank's own
-        elif impl == "cuda":
-            topo = Topology() if topology is None else topology
-            topo.fill(res_per_level, bboxes, device)
-            frame, canons = fused_apply.build_frame_data(
-                labels, vel_kinds, edge_kinds, center_kinds, blocks, mass, res_per_level,
-                canons=topo.canons)
-            sys_.apply_A, sys_.embed_tree, sys_.crop_tree = fused_apply.make_fused_operator(
-                frame, canons, active, res_per_level, dx, config.use_enhanced_gradients,
-                modes=topo.modes, buffers=topo.buffers)
-            sys_.frame, sys_.canons, sys_.modes = frame, canons, topo.modes
-    return sys_
+        with trace.stage("build_system"):
+            v1_apply, diag = operator.make_operator(blocks, mass, active, res_per_level)
+            rhs = operator.boundary_rhs(blocks, mass, guess, active, res_per_level)
+            impl = config.apply_impl
+            refined = config.use_iterative_refinement
+            if impl == "auto":
+                on_card = device.type == "cuda" and (sdtype == torch.float32 or refined)
+                impl = "cuda" if on_card or mesh_n > 1 else "v1"
+            if impl == "cuda" and sdtype != torch.float32 and not refined:
+                raise ValueError("apply_impl='cuda' computes in float32; for a float64 solve "
+                                 "use use_iterative_refinement=True (float32 inner CG through "
+                                 "the fused apply, float64 residual) or apply_impl='v1'")
+            # "v1-fused" runs the "v1" operator: the JAX package rebuilds the
+            # coefficients inside each apply to save memory, with the same numbers
+            sys_ = System(state, orig_res, levels, impl, labels, vel_kinds, regular_kinds,
+                          res_per_level, active, v1_apply, v1_apply, rhs, guess, diag,
+                          blocks=blocks, mass=mass, mask=mask, edge_kinds=edge_kinds,
+                          center_kinds=center_kinds)
+            if impl == "cuda" and mesh_n > 1:
+                sys_.apply_A = None   # parallel/shard_fused builds each rank's own
+            elif impl == "cuda":
+                topo = Topology() if topology is None else topology
+                topo.fill(res_per_level, bboxes, device)
+                frame, canons = fused_apply.build_frame_data(
+                    labels, vel_kinds, edge_kinds, center_kinds, blocks, mass, res_per_level,
+                    canons=topo.canons)
+                sys_.apply_A, sys_.embed_tree, sys_.crop_tree = fused_apply.make_fused_operator(
+                    frame, canons, active, res_per_level, dx, config.use_enhanced_gradients,
+                    modes=topo.modes, buffers=topo.buffers)
+                sys_.frame, sys_.canons, sys_.modes = frame, canons, topo.modes
+        return sys_
 
 
 def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig(),
@@ -380,7 +351,9 @@ def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig()
     occupancy of a ``probe_levels``-level octree in
     ``stats.topology_probe`` (decode with :func:`decode_topology_probe`).
     ``stage_times``: a dict that receives per-stage seconds (synchronizes
-    at each stage).  ``topology``: see :func:`build_system`."""
+    at each stage) and the seconds of the spans inside the stages
+    (``utils/trace.py``, which names them).  ``topology``: see
+    :func:`build_system`."""
     sharded = False
     if mesh is not None:
         if mesh_axis != mesh.axis_name:
@@ -392,82 +365,84 @@ def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig()
         if sharded and (bboxes is not None or topology is not None):
             raise ValueError("a sharded solve runs whole local boxes: no bboxes or topology")
     device = torch.device(device)
-    clock = _StageClock(stage_times, device)
-    sys_ = build_system(state, dt, config, device=device, face_weights=face_weights,
-                        bboxes=bboxes, pad_levels=pad_levels, stage_times=stage_times,
-                        topology=topology, mesh_n=mesh.size if sharded else 1)
-    state, levels = sys_.state, sys_.levels
-    cg_options = dict(cheb_degree=config.cheb_degree, cancel_poll=config.cancel_poll_iters)
+    with trace.tracing(stage_times, device):
+        sys_ = build_system(state, dt, config, device=device, face_weights=face_weights,
+                            bboxes=bboxes, pad_levels=pad_levels, stage_times=stage_times,
+                            topology=topology, mesh_n=mesh.size if sharded else 1)
+        state, levels = sys_.state, sys_.levels
+        cg_options = dict(cheb_degree=config.cheb_degree, cancel_poll=config.cancel_poll_iters)
 
-    with clock("solve"):
-        if config.use_iterative_refinement:
-            if sys_.impl == "cuda":
-                def apply_A32(u):
-                    return sys_.crop_tree(sys_.apply_A(sys_.embed_tree(u)))
-            else:
+        with trace.stage("solve"):
+            if config.use_iterative_refinement:
+                if sys_.impl == "cuda":
+                    def apply_A32(u):
+                        return sys_.crop_tree(sys_.apply_A(sys_.embed_tree(u)))
+                else:
+                    f32 = torch.float32
+                    apply_A32, _ = operator.make_operator(
+                        _cast_blocks(sys_.blocks, f32),
+                        {k: v.to(f32) for k, v in sys_.mass.items()},
+                        sys_.active, sys_.res_per_level)
+                solution, iters, rel, applies = operator.pcg_refined(
+                    sys_.apply_v1, apply_A32, sys_.rhs, sys_.guess, sys_.diag, config.tolerance,
+                    config.max_iterations)
+            elif sharded:
+                from .parallel import shard_fused
+
                 f32 = torch.float32
-                apply_A32, _ = operator.make_operator(
-                    _cast_blocks(sys_.blocks, f32), {k: v.to(f32) for k, v in sys_.mass.items()},
-                    sys_.active, sys_.res_per_level)
-            solution, iters, rel, applies = operator.pcg_refined(
-                sys_.apply_v1, apply_A32, sys_.rhs, sys_.guess, sys_.diag, config.tolerance,
-                config.max_iterations)
-        elif sharded:
-            from .parallel import shard_fused
+                we, wc = shard_fused.stress_weights(sys_.blocks, levels)
+                solution, iters, rel, applies = shard_fused.sharded_fused_pcg(
+                    mesh, sys_.vel_kinds, sys_.edge_kinds, sys_.center_kinds, we, wc,
+                    sys_.mass, sys_.active,
+                    {k: v.to(f32) for k, v in sys_.rhs.items()},
+                    {k: v.to(f32) for k, v in sys_.guess.items()},
+                    {k: v.to(f32) for k, v in sys_.diag.items()}, sys_.res_per_level, state.dx,
+                    config.use_enhanced_gradients, config.tolerance, config.max_iterations,
+                    cheb_degree=config.cheb_degree)
+            elif sys_.impl == "cuda":
+                sol_c, iters, rel, applies = operator.pcg_flat(
+                    sys_.apply_A, sys_.embed_tree(sys_.rhs), sys_.embed_tree(sys_.guess),
+                    sys_.embed_tree(sys_.diag, fill=1.0), config.tolerance, config.max_iterations,
+                    **cg_options)
+                solution = sys_.crop_tree(sol_c)
+            else:
+                solution, iters, rel, applies = operator.pcg_flat(
+                    sys_.apply_A, sys_.rhs, sys_.guess, sys_.diag, config.tolerance,
+                    config.max_iterations, **cg_options)
 
-            f32 = torch.float32
-            we, wc = shard_fused.stress_weights(sys_.blocks, levels)
-            solution, iters, rel, applies = shard_fused.sharded_fused_pcg(
-                mesh, sys_.vel_kinds, sys_.edge_kinds, sys_.center_kinds, we, wc,
-                sys_.mass, sys_.active,
-                {k: v.to(f32) for k, v in sys_.rhs.items()},
-                {k: v.to(f32) for k, v in sys_.guess.items()},
-                {k: v.to(f32) for k, v in sys_.diag.items()}, sys_.res_per_level, state.dx,
-                config.use_enhanced_gradients, config.tolerance, config.max_iterations,
-                cheb_degree=config.cheb_degree)
+        with trace.stage("interpolate_writeback"):
+            interpolated = interpolator.interpolate_writeback_fields(
+                sys_.labels, solution, sys_.vel_kinds, levels)
+
+        with trace.stage("writeback"):
+            new_velocity = writeback.apply_to_regular_grid(
+                state.velocity, solution, sys_.labels, sys_.vel_kinds, sys_.regular_kinds,
+                state.solid_velocity, levels, interpolated)
+            orig = sys_.orig_res
+            if tuple(state.liquid_sdf.shape) != orig:
+                new_velocity = [
+                    v[tuple(slice(0, orig[d] + (1 if d == a else 0)) for d in range(3))]
+                    for a, v in enumerate(new_velocity)]
+
+        if config.use_iterative_refinement:
+            path = "refined"
         elif sys_.impl == "cuda":
-            sol_c, iters, rel, applies = operator.pcg_flat(
-                sys_.apply_A, sys_.embed_tree(sys_.rhs), sys_.embed_tree(sys_.guess),
-                sys_.embed_tree(sys_.diag, fill=1.0), config.tolerance, config.max_iterations,
-                **cg_options)
-            solution = sys_.crop_tree(sol_c)
+            path = "cuda" if device.type == "cuda" else "cuda-plain"
+            path += "-sharded" if sharded else ""
         else:
-            solution, iters, rel, applies = operator.pcg_flat(
-                sys_.apply_A, sys_.rhs, sys_.guess, sys_.diag, config.tolerance,
-                config.max_iterations, **cg_options)
-
-    with clock("interpolate_writeback"):
-        interpolated = interpolator.interpolate_writeback_fields(
-            sys_.labels, solution, sys_.vel_kinds, levels)
-
-    with clock("writeback"):
-        new_velocity = writeback.apply_to_regular_grid(
-            state.velocity, solution, sys_.labels, sys_.vel_kinds, sys_.regular_kinds,
-            state.solid_velocity, levels, interpolated)
-        orig = sys_.orig_res
-        if tuple(state.liquid_sdf.shape) != orig:
-            new_velocity = [v[tuple(slice(0, orig[d] + (1 if d == a else 0)) for d in range(3))]
-                            for a, v in enumerate(new_velocity)]
-
-    if config.use_iterative_refinement:
-        path = "refined"
-    elif sys_.impl == "cuda":
-        path = "cuda" if device.type == "cuda" else "cuda-plain"
-        path += "-sharded" if sharded else ""
-    else:
-        path = sys_.impl
-    # everything the host reads back comes in one transfer (float64 holds
-    # the counts exactly)
-    parts = [torch.as_tensor(rel, device=device).reshape(1),
-             sum(m.sum() for m in sys_.active.values()).reshape(1),
-             sum((k == classify.FLUID).sum() for k in sys_.regular_kinds).reshape(1),
-             octree.active_cell_counts(sys_.labels)]
-    if probe_levels is not None:
-        with clock("topology_probe"):
-            full = capped_levels(tuple(state.liquid_sdf.shape), probe_levels)
-            plabels = sys_.labels if full == levels else octree.build_octree(sys_.mask, full)
-            parts += [octree.active_cell_counts(plabels),
-                      torch.stack(octree.occupied_bboxes(plabels)).reshape(-1)]
+            path = sys_.impl
+        # everything the host reads back comes in one transfer (float64 holds
+        # the counts exactly)
+        parts = [torch.as_tensor(rel, device=device).reshape(1),
+                 sum(m.sum() for m in sys_.active.values()).reshape(1),
+                 sum((k == classify.FLUID).sum() for k in sys_.regular_kinds).reshape(1),
+                 octree.active_cell_counts(sys_.labels)]
+        if probe_levels is not None:
+            with trace.stage("topology_probe"):
+                full = capped_levels(tuple(state.liquid_sdf.shape), probe_levels)
+                plabels = sys_.labels if full == levels else octree.build_octree(sys_.mask, full)
+                parts += [octree.active_cell_counts(plabels),
+                          torch.stack(octree.occupied_bboxes(plabels)).reshape(-1)]
     packed = torch.cat([p.to(torch.float64) for p in parts]).tolist()
     stats = SolveStats(
         iterations=int(iters),
@@ -722,7 +697,7 @@ def make_solver(config: SolverConfig = SolverConfig(), *, auto_trim_levels: bool
         if async_probe and "probe" in carry:
             lv, tight = carry["probe"]
         else:
-            with _StageClock(stage_times, device)("probe"):
+            with trace.tracing(stage_times, device), trace.stage("probe"):
                 lv, tight = probe_topology(state, config, device=device)
         out, used = _dispatch(lv, tight, state, dt, face_weights, pshape, stage_times)
         if not async_probe:
@@ -733,7 +708,8 @@ def make_solver(config: SolverConfig = SolverConfig(), *, auto_trim_levels: bool
             # the solved frame's occupancy escaped the windows it used (or
             # its trim changed): solve it again with its own probe, which
             # cannot escape
-            out, _ = _dispatch(lv2, tight2, state, dt, face_weights, pshape, stage_times)
+            with trace.tracing(stage_times, device), trace.span("resolve"):
+                out, _ = _dispatch(lv2, tight2, state, dt, face_weights, pshape, stage_times)
         return out
 
     def cache_info():
