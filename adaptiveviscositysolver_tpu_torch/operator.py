@@ -246,6 +246,86 @@ def make_chebyshev_precond(A, invd: torch.Tensor, lam_max, degree: int,
     return precond
 
 
+class _CaptureHome:
+    """Per device: the side stream every capture runs on, and the graph of
+    the last capture, kept (never replayed again) for its memory pool.  The
+    next capture shares that pool on the same stream, so it reuses the
+    blocks of the last one: the memory the graphs reserve stays one apply's
+    transients.  A pool of its own per capture would stay reserved after
+    its graph is dropped (the caching allocator returns a dropped pool only
+    on ``empty_cache`` or when an allocation outside a capture fails), so
+    the reserved memory would grow by one apply's transients a dispatch.
+    Captures sharing a pool must not replay at once: the solves on a device
+    replay on one stream, one after the other."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+
+_capture_homes: Dict[torch.device, _CaptureHome] = {}
+
+
+class ApplyGraph:
+    """A flat apply ``fn`` (flat vector -> flat vector, CUDA tensors)
+    replayed from one CUDA graph.  The first call runs ``fn`` eagerly (it
+    loads the kernels' libraries and sets their attributes); the second
+    captures ``fn`` on the device's side stream into a graph in the pool of
+    the device's last capture (:class:`_CaptureHome`), then replays it;
+    every later call replays: the input copied into the graph's static
+    input and one graph launch.  Each replay returns the graph's static
+    output, which the next replay overwrites.  ``counts``: the launch
+    counters that ``fn``'s kernel wrappers add to
+    (``fused_apply.launch_counts``); what the capture added is taken back
+    and added again by every replay, so they count the launches the device
+    runs.  Spans (``utils/trace.py``): ``apply.capture`` around the
+    capture, ``apply.replay`` around each copy and replay.
+    :meth:`release` drops the graph's buffers; only the device's last
+    capture stays held, for its pool."""
+
+    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor], counts: Dict[str, int]):
+        self.fn = fn
+        self.counts = counts
+        self.calls = 0
+        self.graph = self.static_in = self.static_out = None
+        self.launches: Dict[str, int] = {}
+
+    def __call__(self, flat: torch.Tensor) -> torch.Tensor:
+        self.calls += 1
+        if self.calls == 1:
+            return self.fn(flat)
+        if self.graph is None:
+            with trace.span("apply.capture"):
+                self._capture(flat)
+        with trace.span("apply.replay"):
+            self.static_in.copy_(flat)
+            self.graph.replay()
+            for k, n in self.launches.items():
+                self.counts[k] += n
+        return self.static_out
+
+    def _capture(self, flat: torch.Tensor) -> None:
+        before = dict(self.counts)
+        self.static_in = torch.empty_like(flat)
+        home = _capture_homes.get(flat.device)
+        if home is None:
+            home = _capture_homes[flat.device] = _CaptureHome(flat.device)
+        graph = torch.cuda.CUDAGraph()
+        # not torch.cuda.graph: it synchronizes and empties the cache on entry
+        with torch.cuda.stream(home.stream):
+            graph.capture_begin(pool=None if home.graph is None else home.graph.pool())
+            try:
+                self.static_out = self.fn(self.static_in)
+            finally:
+                graph.capture_end()
+        self.graph = home.graph = graph
+        self.launches = {k: n - before.get(k, 0) for k, n in self.counts.items()}
+        self.counts.update(before)
+
+    def release(self) -> None:
+        self.graph = self.static_in = self.static_out = None
+
+
 def pcg_flat(apply_A, rhs: UField, x0: UField, diag: UField, tolerance: float,
              max_iterations: int, cheb_degree: int = 1, cancel_poll: int = 0):
     """PCG with flat-vector state; ``apply_A`` maps grid dicts to grid
@@ -254,28 +334,45 @@ def pcg_flat(apply_A, rhs: UField, x0: UField, diag: UField, tolerance: float,
     preconditioner on a power-iteration lam_max started from ``b``
     (13 applies once), so a solve makes 13 + 1 + (k - 1) + iterations * k
     applies; Jacobi makes 1 + iterations.  ``cancel_poll``: see
-    :func:`_flat_pcg`.  Returns (x, iterations, relative residual,
-    applies)."""
+    :func:`_flat_pcg`.  An ``apply_A`` marked ``capturable`` (the fused
+    apply's card kernels, ``ops/fused_apply.py``) runs as an
+    :class:`ApplyGraph` over its ``launch_counts``, released on return.
+    The flat apply's result may then be the buffer that the next apply
+    overwrites: no caller keeps it across the next apply (the CG, the
+    Chebyshev preconditioner and the lam_max estimate use it at once).
+    Returns (x, iterations, relative residual, applies)."""
     shapes = {k: tuple(v.shape) for k, v in rhs.items()}
     pack, unpack = make_packer(shapes)
     applies = 0
+
+    def flat_apply(flat):
+        return pack(apply_A(unpack(flat)))
+
+    graph = None
+    if getattr(apply_A, "capturable", False):
+        graph = ApplyGraph(flat_apply, apply_A.launch_counts)
+    run = flat_apply if graph is None else graph
 
     def A(flat):
         nonlocal applies
         applies += 1
         with trace.span("cg.apply"):
-            return pack(apply_A(unpack(flat)))
+            return run(flat)
 
-    b = pack(rhs)
-    invd = 1.0 / pack(diag)
-    b_norm2 = torch.dot(b, b)
-    threshold = tolerance * tolerance * b_norm2
-    precond = None
-    if cheb_degree > 1:
-        lam = estimate_lambda_max(A, invd, b)
-        precond = make_chebyshev_precond(A, invd, lam, cheb_degree)
-    x, iters, rr = _flat_pcg(A, b, pack(x0), invd, threshold, max_iterations,
-                             precond=precond, cancel_poll=cancel_poll)
+    try:
+        b = pack(rhs)
+        invd = 1.0 / pack(diag)
+        b_norm2 = torch.dot(b, b)
+        threshold = tolerance * tolerance * b_norm2
+        precond = None
+        if cheb_degree > 1:
+            lam = estimate_lambda_max(A, invd, b)
+            precond = make_chebyshev_precond(A, invd, lam, cheb_degree)
+        x, iters, rr = _flat_pcg(A, b, pack(x0), invd, threshold, max_iterations,
+                                 precond=precond, cancel_poll=cancel_poll)
+    finally:
+        if graph is not None:
+            graph.release()
     rel = torch.sqrt(rr / b_norm2.clamp_min(1e-300))
     return unpack(x), iters, rel, applies
 

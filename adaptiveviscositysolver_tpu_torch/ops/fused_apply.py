@@ -1168,7 +1168,10 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
     :func:`join_levels` adds the zp/zc adjoints masked to the receiving
     level, in the spans ``apply.views``, ``apply.kernels`` and
     ``apply.join`` (``utils/trace.py``).  A returned grid of a one-level
-    operator is a buffer that the next apply overwrites."""
+    operator is a buffer that the next apply overwrites.  ``apply_A`` is
+    marked ``capturable`` when it runs the card's kernels (CUDA tensors,
+    not ``plain``): ``operator.pcg_flat`` then replays it from a CUDA
+    graph, adding each replay's launches to ``apply_A.launch_counts``."""
     levels = len(res_per_level)
     run = make_level_pass(frame, canons, dx, enhanced, plain=plain, modes=modes,
                           buffers=buffers)
@@ -1203,4 +1206,6 @@ def make_fused_operator(frame: Dict[str, torch.Tensor], canons: Sequence[Canon],
 
     apply_A.metas = run.metas
     apply_A.level_args = level_args
+    apply_A.capturable = not plain and frame["kp0_0"].device.type == "cuda"
+    apply_A.launch_counts = launch_counts
     return apply_A, embed_tree, crop_tree

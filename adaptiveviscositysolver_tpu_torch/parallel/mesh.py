@@ -324,7 +324,9 @@ def apply_on_ranks(mesh: Mesh, state, dt, config: SolverConfig, seed: int = 0,
     ``shard_fused.sharded_operator``'s apply of :func:`random_faces`
     (``seed``) on this rank's local boxes, gathered: the global result
     (rank 0), the routes, launch and collective counts of the frame and
-    the apply.  ``ghost_garbage``: apply again with 1e30 in the x faces' ghost rows of
+    the apply, and whether the apply is marked ``capturable`` (the
+    sharded CG runs it eagerly: no graph captures a collective).
+    ``ghost_garbage``: apply again with 1e30 in the x faces' ghost rows of
     the input (the apply refreshes them from the owner).  ``local_args``:
     also the rank's kernel inputs of that apply on its halo-filled local
     boxes (numpy: a tensor on the queue would need its rank alive), its
@@ -363,6 +365,7 @@ def apply_on_ranks(mesh: Mesh, state, dt, config: SolverConfig, seed: int = 0,
         return {k: v.cpu().numpy() for k, v in tree.items()} if mesh.rank == 0 else None
 
     return {"rank": mesh.rank, "modes": [str(m) for m in apply_A.modes],
+            "capturable": bool(getattr(apply_A, "capturable", False)),
             "out": host(out), "out_ghost_garbage": None if garbage is None else host(garbage),
             "launches": launches, "collectives": collectives, "local": local}
 

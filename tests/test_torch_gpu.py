@@ -347,6 +347,132 @@ def test_flip_loop_on_card_matches_cpu():
     assert float(got.velocity[1].mean()) < 0.0
 
 
+def _per_apply_launches(canons, modes):
+    """The launches of one apply: the fused pair if a level is fused, the
+    level pair per x-row range of every split or bricked level."""
+    fused = int("fused" in modes)
+    ranges = sum(len(c.row_ranges()) for c, m in zip(fa.route_canons(canons, modes), modes)
+                 if m != "fused")
+    return {"fused_tau": fused, "fused_dt": fused, "tau_level": ranges, "dt_level": ranges}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["bricked", "beam"])
+def test_graphed_apply_matches_eager_on_card(card_frame, cropped_frame, frame):
+    """The flat apply through operator.ApplyGraph (eager, then captured and
+    replayed) equals the eager apply bit for bit on 6 different inputs:
+    buckling-32 with level 0 in bricks and levels 1-2 fused (buckling-192's
+    route), and the all-fused beam-48 on its crop windows; each call adds
+    one apply's launches to the counts."""
+    from adaptiveviscositysolver_tpu_torch import operator
+
+    if frame == "bricked":
+        sys_, _, dx = card_frame
+        modes = [("brick", 6), "fused", "fused"]
+        canons = fa.route_canons(sys_.canons, modes)
+        apply_A, _, _ = fa.make_fused_operator(sys_.frame, canons, sys_.active,
+                                               sys_.res_per_level, dx, True, modes=modes)
+    else:
+        sys_, _, _ = cropped_frame
+        apply_A, canons, modes = sys_.apply_A, sys_.canons, sys_.modes
+        assert set(modes) == {"fused"}, modes
+    assert apply_A.capturable and apply_A.launch_counts is fa.launch_counts
+    pack, unpack = operator.make_packer({k: tuple(v.shape)
+                                         for k, v in sys_.embed_tree(sys_.rhs).items()})
+
+    def flat(x):
+        return pack(apply_A(unpack(x)))
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    xs = [pack(sys_.embed_tree({k: torch.randn(m.shape, generator=g).to("cuda") * m
+                                for k, m in sys_.active.items()})) for _ in range(6)]
+    want = [flat(x) for x in xs]
+    per_apply = _per_apply_launches(canons, modes)
+    graph = operator.ApplyGraph(flat, fa.launch_counts)
+    try:
+        for i, x in enumerate(xs):
+            before = dict(fa.launch_counts)
+            got = graph(x)
+            assert {k: fa.launch_counts[k] - before[k] for k in before} == per_apply, i
+            assert torch.equal(got, want[i]), (frame, i, float((got - want[i]).abs().max()))
+        assert graph.graph is not None and got is graph.static_out
+    finally:
+        graph.release()
+
+
+class _Counting(dict):
+    """A ``stage_times`` dict that counts its writes, as the benchmark's."""
+
+    def __init__(self):
+        super().__init__()
+        self.entries = {}
+
+    def __setitem__(self, key, value):
+        self.entries[key] = self.entries.get(key, 0) + 1
+        super().__setitem__(key, value)
+
+
+@pytest.mark.gpu
+def test_solve_on_card_replays_the_apply(monkeypatch):
+    """A buckling-32 solve on the card with level 0 bricked and level 1
+    split: one capture, every apply after the first replayed (the spans'
+    entries), launches = applies x launches of one apply, and the same
+    iterations and velocity, bit for bit, as the solve with every apply
+    eager."""
+    _need_card()
+    state = scenes.buckling(n=32, device="cuda")
+    cfg = SolverConfig(octree_levels=3, tolerance=1e-5)
+    canons = solver.build_system(scenes.buckling(n=32, device="cpu"), DT,
+                                 dataclasses.replace(cfg, apply_impl="cuda"), device="cpu").canons
+    budget = fa.tau_bytes(canons[1])
+    modes = fa.level_modes(canons, budget)
+    assert modes[0][0] == "brick" and modes[1] == "split", modes
+    monkeypatch.setattr(fa, "route_budget", lambda device: budget)
+    fa.reset_launch_counts()
+    log = _Counting()
+    got = solver.solve_viscosity(state, DT, cfg, device="cuda", stage_times=log)
+    st, n = got.stats, log.entries
+    assert st.solve_path == "cuda" and st.residual <= 1e-5
+    assert n["cg.apply"] == st.applies == st.iterations + 1
+    assert n["apply.capture"] == 1 and n["apply.replay"] == st.applies - 1
+    assert n["apply.kernels"] == n["apply.views"] == n["apply.join"] == 2
+    per_apply = _per_apply_launches(canons, modes)
+    assert fa.launch_counts == {k: st.applies * v for k, v in per_apply.items()}
+
+    make = fa.make_fused_operator
+
+    def eager(*a, **kw):
+        apply_A, embed_tree, crop_tree = make(*a, **kw)
+        apply_A.capturable = False
+        return apply_A, embed_tree, crop_tree
+
+    monkeypatch.setattr(solver.fused_apply, "make_fused_operator", eager)
+    log = _Counting()
+    want = solver.solve_viscosity(state, DT, cfg, device="cuda", stage_times=log)
+    assert "apply.capture" not in log.entries and "apply.replay" not in log.entries
+    assert want.stats.iterations == st.iterations
+    for a in range(3):
+        assert torch.equal(got.velocity[a], want.velocity[a]), a
+
+
+@pytest.mark.gpu
+def test_repeated_solves_on_card_reserve_no_more_memory():
+    """Frame after frame through one make_solver, each dispatch capturing
+    its apply anew: from the third frame on the allocator reserves no more
+    memory (each capture reuses the pool of the device's last one)."""
+    _need_card()
+    state = scenes.buckling(n=32, device="cuda")
+    solve = solver.make_solver(SolverConfig(octree_levels=3, tolerance=1e-5), device="cuda")
+    reserved = []
+    for _ in range(6):
+        log = _Counting()
+        solve(state, DT, stage_times=log)
+        assert log.entries["apply.capture"] == 1
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+    assert len(set(reserved[2:])) == 1, reserved
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("route", ["default", "bricked"])
 def test_sharded_solve_on_card_matches_single_device(route):

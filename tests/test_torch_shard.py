@@ -198,6 +198,7 @@ def test_sharded_apply_matches_single_device(apply_case, sharded_applies, n):
     ranks = sharded_applies[n]
     assert [r["rank"] for r in ranks] == list(range(n))
     assert all(r["modes"] == ["fused"] * 3 for r in ranks)
+    assert not any(r["capturable"] for r in ranks)   # gloo collectives: never captured
     assert all(set(r["launches"].values()) == {0} for r in ranks)  # the plain versions
     _close(ranks[0]["out"], want, 3e-5, f"{n} ranks")
     assert sum(int(m.sum()) for (l, _), m in sys_.active.items() if l > 0) > 0

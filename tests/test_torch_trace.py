@@ -18,6 +18,8 @@ from adaptiveviscositysolver_tpu_torch.utils import trace
 
 CG_SPANS = ("cg.apply", "cg.vector", "cg.precond", "cg.converged")
 APPLY_SPANS = ("apply.views", "apply.kernels", "apply.join")
+# the card's graphed apply (operator.ApplyGraph): never on CPU tensors
+GRAPH_SPANS = ("apply.capture", "apply.replay")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,6 +65,7 @@ def test_span_entries_count_the_work(beam16, impl, path, cheb):
     assert n["cg.converged"] == st.iterations + 1
     assert n["cg.vector"] == 2 * st.iterations and n["cg.precond"] == st.iterations
     assert n["solve"] == 1
+    assert not any(s in n for s in GRAPH_SPANS), n
     if path == "cuda-plain":
         assert all(n[s] == n["cg.apply"] for s in APPLY_SPANS), n
         assert n["topology.build"] == 1
