@@ -1,6 +1,13 @@
 """The comparison that decides ``correct``: a frame the program returned
 against the reference's frame of the same inputs.
 
+The reference is the plain answer whatever route the program's solve
+takes: a float64 Jacobi CG on the ``v1`` operator to the configuration's
+tolerance, under its ``max_iterations``.  A configuration that turns on
+``use_iterative_refinement`` has the program reach that stopping rule by
+float32 inner CGs inside float64 residuals; it is held to the same answer,
+and its ``iters_gap`` compares the inner iterations in all.
+
 Numbers compared, each with its limit from the configuration file
 (``limits``):
 

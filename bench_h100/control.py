@@ -7,10 +7,13 @@ one process (the benchmark's own runs never run this):
 
 ``program``: a run of the cell per seed (set-up, a window of ``--seconds``,
 the check), the lower readings.  ``control``: the plain reference put in
-the program's place, with its operator and CG in bfloat16 (the nearest
-precision below the configuration's float32 for work with no matrix
-product), no warm-up, its frames held to the float64 reference as a run's
-are: the upper readings.  One JSON line per seed and mode.
+the program's place, its stages in the configuration's dtype and its
+operator and CG one precision below it (``CONTROL_DTYPES``): bfloat16 under
+float32 (the nearest step down for work with no matrix product, so no
+TF32), float32 under float64 (what a float64 configuration must tell from
+its own answer, refined or not).  No warm-up; its frames are held to the
+float64 reference as a run's are: the upper readings.  One JSON line per
+seed and mode.
 """
 
 from __future__ import annotations
@@ -28,9 +31,20 @@ import torch  # noqa: E402
 from reference.solve import reference_frame  # noqa: E402
 
 
-def control_solver(config, solve_dtype=torch.bfloat16):
+# the configuration's dtype -> the precision its control solves in
+CONTROL_DTYPES = {"float32": torch.bfloat16, "float64": torch.float32}
+
+
+def control_dtype(config) -> torch.dtype:
+    """The precision one step below the configuration's dtype."""
+    return CONTROL_DTYPES[config["dtype"]]
+
+
+def control_solver(config):
     """A stand-in for ``make_solver``: each frame is the reference's, in the
-    configuration's dtype with its system and CG in ``solve_dtype``."""
+    configuration's dtype with its system and CG in :func:`control_dtype`."""
+    solve_dtype = control_dtype(config)
+
     def factory(_cfg, device=None):
         ref_cfg = run.reference_config(config)
 

@@ -5,6 +5,11 @@ Jacobi CG on the ``v1`` operator.
 ``reference_frame`` takes the very tensors the program was handed and
 returns what the program's closure returns for a frame: the written-back
 MAC velocity and the frame's statistics.
+
+It is the plain answer for every configuration: the CG stops by the
+configuration's tolerance and ``max_iterations`` alone.  A configuration
+that refines (``use_iterative_refinement``) changes the program's route to
+that stopping rule, not the answer, so the reference takes no such setting.
 """
 
 from __future__ import annotations

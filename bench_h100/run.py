@@ -6,7 +6,8 @@ calls it.
     python3 bench_h100/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 The workload names a cell of ``BENCHMARK.json``: a configuration
-(``configs/<config>.json``: the scene, its size and the solver settings)
+(``configs/<config>.json``: the scene, its size and dtype, and the solver
+settings of ``SETTINGS``)
 under a traffic mix (``traffic/<traffic>.json``, read by
 ``frames.make_states``).  Set-up makes the cycle of frame states on the
 card from the seed, hands each over as the program's ``FluidState``, and
@@ -34,6 +35,7 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import collections  # noqa: E402
+import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
@@ -44,7 +46,7 @@ import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
-from typing import Callable, Dict, Optional  # noqa: E402
+from typing import Callable, Dict, NamedTuple, Optional  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -104,17 +106,71 @@ def dt_of(config: Dict) -> float:
     return float(torch.tensor(float(config["dt"]), dtype=frames.DTYPES[config["dtype"]]))
 
 
+class Setting(NamedTuple):
+    """A solver setting a configuration file may state: its ``key`` sets
+    the program's ``SolverConfig`` field ``field``, of type ``kind``, and
+    the reference's too where ``reference``."""
+    key: str
+    field: str
+    kind: type
+    reference: bool
+
+
+# The solver settings a configuration file may state; a key it leaves out
+# takes the field's default.  The fields' dtype (the configuration's
+# ``dtype``, which ``frames`` reads) is the solve's, so ``SolverConfig.dtype``
+# stays None.  Refinement is the program's route to the reference's stopping
+# rule, not another answer: the reference stays a float64 Jacobi CG.
+SETTINGS = (
+    Setting("octree_levels", "octree_levels", int, True),
+    Setting("tolerance", "tolerance", float, True),
+    Setting("max_iterations", "max_iterations", int, True),
+    Setting("cheb_degree", "cheb_degree", int, False),
+    Setting("use_iterative_refinement", "use_iterative_refinement", bool, False),
+)
+
+
+def _typed(key: str, kind: type, value):
+    # a JSON true is an int to Python: no count is a switch, and no switch a count
+    accepts = {bool: bool, int: int, float: (int, float)}[kind]
+    if isinstance(value, bool) != (kind is bool) or not isinstance(value, accepts):
+        raise ValueError(f"configuration key {key!r}: {value!r} is not a {kind.__name__}")
+    return kind(value)
+
+
+def settings(config: Dict, reference: bool = False) -> Dict[str, object]:
+    """field -> value of each setting in ``SETTINGS`` that the
+    configuration states (the reference's only, with ``reference``)."""
+    return {s.field: _typed(s.key, s.kind, config[s.key]) for s in SETTINGS
+            if s.key in config and (s.reference or not reference)}
+
+
 def solver_config(config: Dict):
+    """The program's ``SolverConfig`` of a configuration.  Refuses, naming
+    the key, what a run would silently ignore: a ``SolverConfig`` field
+    that ``SETTINGS`` does not pass on, a Chebyshev degree under
+    refinement (the program ignores it there), and refinement of a float32
+    configuration (its residual would be formed in float32)."""
     from adaptiveviscositysolver_tpu_torch import SolverConfig
 
-    return SolverConfig(octree_levels=int(config["octree_levels"]),
-                        tolerance=float(config["tolerance"]),
-                        cheb_degree=int(config["cheb_degree"]))
+    passed = {s.key for s in SETTINGS} | {"dtype"}
+    for f in dataclasses.fields(SolverConfig):
+        if f.name in config and f.name not in passed:
+            raise ValueError(f"configuration key {f.name!r} is a SolverConfig field the "
+                             f"benchmark does not pass to the program")
+    kw = settings(config)
+    if kw.get("use_iterative_refinement"):
+        if kw.get("cheb_degree", 1) > 1:
+            raise ValueError("configuration key 'cheb_degree' > 1 with "
+                             "'use_iterative_refinement': refinement ignores the degree")
+        if config["dtype"] == "float32":
+            raise ValueError("configuration key 'use_iterative_refinement' on a float32 "
+                             "configuration: refinement needs a wider dtype")
+    return SolverConfig(**kw)
 
 
 def reference_config(config: Dict) -> RefConfig:
-    return RefConfig(octree_levels=int(config["octree_levels"]),
-                     tolerance=float(config["tolerance"]))
+    return RefConfig(**settings(config, reference=True))
 
 
 def fluid_state(s: Dict[str, object]):
@@ -180,6 +236,7 @@ def run_cell(cell: Dict, config: Dict, traffic: Dict, seed: int, seconds: float,
     control hand in another).  ``per_layer``: the ``per_layer`` entries of
     the cell, read when ``trace``."""
     dev = torch.device(device)
+    cfg = solver_config(config)   # refuses a setting the run would ignore, before set-up
     if make_solver is None:
         from adaptiveviscositysolver_tpu_torch import make_solver
     if dev.type == "cuda":
@@ -187,7 +244,7 @@ def run_cell(cell: Dict, config: Dict, traffic: Dict, seed: int, seconds: float,
     states = frames.make_states(config, traffic, seed, dev)
     handed = [fluid_state(s) for s in states]
     dt = dt_of(config)
-    solve = make_solver(solver_config(config), device=dev)
+    solve = make_solver(cfg, device=dev)
     cycle = len(handed)
     pos = 0
     for _ in range(int(traffic["warmup_frames"])):
@@ -234,7 +291,8 @@ def run_cell(cell: Dict, config: Dict, traffic: Dict, seed: int, seconds: float,
         n = len(records)
         st = out.stats
         rec = {"wall_s": t_end - start, "state": idx, "iterations": int(st.iterations),
-               "levels": len(st.active_cells), "profiled": profiling}
+               "levels": len(st.active_cells), "path": getattr(st, "solve_path", None),
+               "profiled": profiling}
         if trace:
             rec["stage_s"] = dict(log)
             rec["entries"] = dict(log.entries)
@@ -321,7 +379,8 @@ def run_cell(cell: Dict, config: Dict, traffic: Dict, seed: int, seconds: float,
     if breakdown is not None:
         result["breakdown"] = breakdown
     print(f"frame walls ms {[round(w, 1) for w in walls_ms]}; iterations "
-          f"{[r['iterations'] for r in records]}; checked frames "
+          f"{[r['iterations'] for r in records]}; solve paths "
+          f"{sorted({str(r['path']) for r in records})}; checked frames "
           f"{[item['frame'] for item in held]}; reference {time.perf_counter() - t_ref:.2f} s",
           file=sys.stderr)
     result["checks"] = {n: {"value": worst[n] if math.isfinite(worst[n]) else str(worst[n]),
