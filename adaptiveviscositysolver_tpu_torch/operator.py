@@ -379,48 +379,79 @@ def pcg_flat(apply_A, rhs: UField, x0: UField, diag: UField, tolerance: float,
 
 def pcg_refined(apply_A_hi, apply_A_lo, rhs: UField, x0: UField, diag: UField,
                 tolerance: float, max_iterations: int, inner_tolerance: float = 1e-4,
-                max_outer: int = 40):
+                max_outer: int = 40, embed_tree=None, crop_tree=None):
     """Mixed precision: float32 Jacobi-CG inner solves of ``A d = r``
     inside an iterative-refinement loop that forms ``r = b - A x`` in the
     rhs's dtype, until ||r||_2 <= tol * ||b||_2 there, ``max_iterations``
     inner iterations in all, or ``max_outer`` passes.  Each inner solve
     stops at ``inner_tolerance`` relative to its own rhs.  ``apply_A_hi``
-    acts on rhs-dtype grid dicts, ``apply_A_lo`` on float32 ones.  Returns
+    acts on rhs-dtype grid dicts, ``apply_A_lo`` on float32 ones: of the
+    rhs's shapes, or, given the fused apply's ``embed_tree`` and
+    ``crop_tree`` (``ops/fused_apply.py``), canonical ones.  Then each
+    pass embeds its residual once and crops its correction once, and an
+    ``apply_A_lo`` marked ``capturable`` runs as one :class:`ApplyGraph`
+    that every pass's CG replays, released on return (the contract of
+    :func:`pcg_flat`).  Spans (``utils/trace.py``): ``refine.residual``
+    around each residual (passes + 1), ``refine.inner`` around each
+    pass's inner solve, ``cg.apply`` around each inner apply.  Returns
     (x, total inner iterations, relative residual, applies of both)."""
     shapes = {k: tuple(v.shape) for k, v in rhs.items()}
     pack, unpack = make_packer(shapes)
     lo = torch.float32
     applies = 0
+    if embed_tree is None:
+        pack_lo, unpack_lo = pack, unpack
+        invd_lo = (1.0 / pack(diag)).to(lo)
+    else:
+        diag_c = embed_tree(diag, fill=1.0)
+        pack_lo, unpack_lo = make_packer({k: tuple(v.shape) for k, v in diag_c.items()})
+        invd_lo = 1.0 / pack_lo(diag_c)
 
-    def A_hi(flat):
-        nonlocal applies
-        applies += 1
-        with trace.span("cg.apply"):
-            return pack(apply_A_hi(unpack(flat)))
+    def flat_lo(flat):
+        return pack_lo(apply_A_lo(unpack_lo(flat)))
+
+    graph = None
+    if getattr(apply_A_lo, "capturable", False):
+        graph = ApplyGraph(flat_lo, apply_A_lo.launch_counts)
+    run = flat_lo if graph is None else graph
 
     def A_lo(flat):
         nonlocal applies
         applies += 1
         with trace.span("cg.apply"):
-            return pack(apply_A_lo(unpack(flat)))
+            return run(flat)
 
     b = pack(rhs)
-    x = pack(x0)
     hi = b.dtype
-    invd_lo = (1.0 / pack(diag)).to(lo)
+
+    def residual(x):
+        nonlocal applies
+        applies += 1
+        with trace.span("refine.residual"):
+            return b - pack(apply_A_hi(unpack(x)))
+
+    x = pack(x0)
     b_norm2 = torch.dot(b, b)
     threshold = tolerance * tolerance * b_norm2
     itol2 = torch.tensor(inner_tolerance, dtype=lo, device=b.device) ** 2
-    r = b - A_hi(x)
-    total = outer = 0
-    while _above(torch.dot(r, r), threshold) and total < max_iterations and outer < max_outer:
-        r_lo = r.to(lo)
-        inner_threshold = itol2 * torch.dot(r_lo, r_lo)
-        d, it, _ = _flat_pcg(A_lo, r_lo, torch.zeros_like(r_lo), invd_lo, inner_threshold,
-                             max_iterations - total)
-        x = x + d.to(hi)
-        r = b - A_hi(x)
-        total += it
-        outer += 1
+    try:
+        r = residual(x)
+        total = outer = 0
+        while _above(torch.dot(r, r), threshold) and total < max_iterations and outer < max_outer:
+            with trace.span("refine.inner"):
+                r_lo = r.to(lo)
+                if embed_tree is not None:
+                    r_lo = pack_lo(embed_tree(unpack(r_lo)))
+                d, it, _ = _flat_pcg(A_lo, r_lo, torch.zeros_like(r_lo), invd_lo,
+                                     itol2 * torch.dot(r_lo, r_lo), max_iterations - total)
+                if crop_tree is not None:
+                    d = pack(crop_tree(unpack_lo(d)))
+                x = x + d.to(hi)
+            r = residual(x)
+            total += it
+            outer += 1
+    finally:
+        if graph is not None:
+            graph.release()
     rel = torch.sqrt(torch.dot(r, r) / b_norm2.clamp_min(1e-300))
     return unpack(x), total, rel, applies

@@ -63,7 +63,9 @@ class SolveStats:
     # operator) or "refined" (mixed-precision iterative refinement)
     solve_path: str = ""
     applies: int = 0          # operator applies made by the solve (both
-    # precisions under refinement; the lam_max estimate included)
+    # precisions under refinement; the lam_max estimate included).  Under
+    # refinement only the float32 ones open ``cg.apply``: applies =
+    # ``cg.apply`` + ``refine.residual`` entries (utils/trace.py)
     # [iterations, residual, octree_dofs, regular_dofs, counts..., boxes...]
     # of THIS frame's full-height octree occupancy (the JAX layout), fetched
     # with the stats when solve_viscosity gets ``probe_levels``, so that
@@ -375,17 +377,19 @@ def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig()
         with trace.stage("solve"):
             if config.use_iterative_refinement:
                 if sys_.impl == "cuda":
-                    def apply_A32(u):
-                        return sys_.crop_tree(sys_.apply_A(sys_.embed_tree(u)))
+                    # the inner CG on the canonical grids, through the fused apply
+                    apply_A32 = sys_.apply_A
+                    canonical = dict(embed_tree=sys_.embed_tree, crop_tree=sys_.crop_tree)
                 else:
                     f32 = torch.float32
                     apply_A32, _ = operator.make_operator(
                         _cast_blocks(sys_.blocks, f32),
                         {k: v.to(f32) for k, v in sys_.mass.items()},
                         sys_.active, sys_.res_per_level)
+                    canonical = {}
                 solution, iters, rel, applies = operator.pcg_refined(
                     sys_.apply_v1, apply_A32, sys_.rhs, sys_.guess, sys_.diag, config.tolerance,
-                    config.max_iterations)
+                    config.max_iterations, **canonical)
             elif sharded:
                 from .parallel import shard_fused
 

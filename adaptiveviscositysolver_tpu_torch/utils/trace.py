@@ -26,6 +26,20 @@ device's idle time down to the innermost one.  Inside a loop marked by
 ``PROFILE_EVERY``-th iteration after it; they reach the sink on every
 iteration.  With no sink and no profiler, :func:`stage` and :func:`span`
 return one shared no-op object (no ``record_function`` is entered).
+
+The port's spans, by where they open:
+
+* ``operator``: ``cg.apply`` around each CG apply, ``cg.vector``,
+  ``cg.precond`` and ``cg.converged`` (the stop test's read-back) in the
+  CG's loop; ``apply.capture`` and ``apply.replay`` in ``ApplyGraph``;
+  under iterative refinement (``pcg_refined``) ``refine.residual`` around
+  each float64 residual (passes + 1 a solve) and ``refine.inner`` around
+  each pass's float32 inner solve (passes), whose applies alone open
+  ``cg.apply``.
+* ``ops/fused_apply``: ``apply.views``, ``apply.kernels``, ``apply.join``
+  inside an eager or capturing fused apply.
+* ``solver``: ``topology.build`` when a ``Topology`` is built, ``resolve``
+  around ``make_solver``'s second dispatch of a frame.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ return one reused output vector: no caller of ``pcg_flat``'s apply keeps
 its result across the next apply.  A CUDA graph needs a card, so here a
 stand-in replays the apply by writing its result into one reused output
 buffer, as a replay does (the card's tests are in test_torch_gpu.py).
-16^3 beam, ``cuda-plain`` (the fused apply's plain version)."""
+16^3 beam, ``cuda-plain`` (the fused apply's plain version), and its
+refined float64 solve, whose inner CGs replay one graph."""
 
 import collections
 import dataclasses
@@ -113,10 +114,12 @@ def test_only_the_card_kernels_are_marked_capturable(beam16_system):
     assert not getattr(v1.apply_A, "capturable", False)
 
 
-def test_refined_path_stays_eager(monkeypatch):
-    """Iterative refinement runs the fused apply inside its own float32
-    and float64 closures: even an operator marked capturable, as on the
-    card, is never captured there (no apply.capture or apply.replay)."""
+def test_refined_inner_replays_one_graph(monkeypatch):
+    """Iterative refinement runs its float32 inner CGs on the canonical
+    grids through the fused apply: an operator marked capturable, as on
+    the card, is captured once for the solve and replayed by every inner
+    apply after the first, through every pass; the float64 residuals
+    (``refine.residual``) stay eager and open no ``cg.apply``."""
     make = fa.make_fused_operator
 
     def marked(*a, **kw):
@@ -132,5 +135,7 @@ def test_refined_path_stays_eager(monkeypatch):
         octree_levels=3, tolerance=1e-9, apply_impl="cuda", use_iterative_refinement=True),
         device="cpu", stage_times=log)
     assert out.stats.solve_path == "refined" and out.stats.residual <= 1e-9
-    assert log.entries["cg.apply"] == out.stats.applies > 0
-    assert not any(s in log for s in GRAPH_SPANS), dict(log.entries)
+    n = log.entries
+    assert n["refine.inner"] >= 2 and n["refine.residual"] == n["refine.inner"] + 1
+    assert n["cg.apply"] + n["refine.residual"] == out.stats.applies
+    assert n["apply.capture"] == 1 and n["apply.replay"] == n["cg.apply"] - 1

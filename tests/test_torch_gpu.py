@@ -2,9 +2,10 @@
 all-level kernels (fused_tau, fused_dt) and its probe kernels (banded_apply,
 stream_floor) against their plain versions, a
 routed solve, a Chebyshev solve and two FLIP frames on the card against the
-same on the CPU, make_solver's cached topology on the card against fresh
-solves, and the sharded solve on 2 gloo ranks sharing the card (buckling-32
-on both routes, buckling-192) against the single-device card solve.
+same on the CPU, refined float64 solves against the float64 v1 solve,
+make_solver's cached topology on the card against fresh solves, and the
+sharded solve on 2 gloo ranks sharing the card (buckling-32 on both routes,
+buckling-192) against the single-device card solve.
 
 Nothing here imports JAX, so this file also runs on a machine that has a
 card and no JAX; there the suite's conftest (which sets JAX up) is left out:
@@ -323,6 +324,29 @@ def test_refined_solve_on_card_runs_the_kernels():
     scale = max(float(v.abs().max()) for v in want.velocity)
     for a in range(3):
         assert float((got.velocity[a] - want.velocity[a]).abs().max()) / scale < 1e-5
+
+
+@pytest.mark.gpu
+def test_refined_solve_on_card_replays_the_inner_apply():
+    """A float64 refined solve of buckling-32 on the card: its inner CGs
+    run on the canonical grids and replay one graph (one capture, every
+    inner apply after the first replayed), and the velocity lands within
+    rel 1e-10 of the float64 v1 solve."""
+    _need_card()
+    state = scenes.buckling(n=32, dtype=torch.float64, device="cpu")
+    cfg = SolverConfig(octree_levels=3, tolerance=1e-9)
+    log = _Counting()
+    got = solver.solve_viscosity(state, DT, dataclasses.replace(
+        cfg, use_iterative_refinement=True), device="cuda", stage_times=log)
+    st, n = got.stats, log.entries
+    assert st.solve_path == "refined" and st.residual <= 1e-9
+    assert n["apply.capture"] == 1 and 0 < n["apply.replay"] == n["cg.apply"] - 1
+    assert n["cg.apply"] + n["refine.residual"] == st.applies
+    want = solver.solve_viscosity(state, DT, cfg, device="cuda")
+    assert want.stats.solve_path == "v1"
+    scale = max(float(v.abs().max()) for v in want.velocity)
+    for a in range(3):
+        assert float((got.velocity[a] - want.velocity[a]).abs().max()) / scale <= 1e-10
 
 
 @pytest.mark.gpu
