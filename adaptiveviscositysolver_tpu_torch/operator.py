@@ -18,6 +18,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .ops import cg_update
 from .ops.arrayops import (
     face_child_sum,
     face_child_sum_adjoint,
@@ -153,6 +154,14 @@ def _above(rr: torch.Tensor, threshold: torch.Tensor) -> bool:
         return bool(rr > threshold)
 
 
+def _fuses(b: torch.Tensor, precond: Optional[Callable], dot: Callable) -> bool:
+    """Whether :func:`_flat_pcg` runs :func:`_fused_jacobi_pcg`, whose
+    vector update runs in the kernels of ``ops/cg_update.py``: a float32
+    ``b`` on the card, Jacobi and ``torch.dot``."""
+    return (b.device.type == "cuda" and b.dtype == torch.float32 and precond is None
+            and dot is torch.dot)
+
+
 def _flat_pcg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
               x0: torch.Tensor, invd: torch.Tensor, threshold: torch.Tensor,
               max_iterations: int, precond: Optional[Callable] = None, cancel_poll: int = 0,
@@ -167,7 +176,11 @@ def _flat_pcg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     local dots: parallel/shard_fused.py); 3 + 3 per iteration.  Spans
     (``utils/trace.py``): ``cg.converged`` around each stop test, and per
     iteration ``cg.vector`` twice and ``cg.precond`` once, sampled for the
-    profiler as a :class:`trace.loop`.  Returns (x, iterations, ||r||^2)."""
+    profiler as a :class:`trace.loop`.  A float32 Jacobi CG on the card
+    runs :func:`_fused_jacobi_pcg` (:func:`_fuses`).  Returns (x,
+    iterations, ||r||^2); ``x0`` and ``b`` are not written."""
+    if _fuses(b, precond, dot):
+        return _fused_jacobi_pcg(A, b, x0, invd, threshold, max_iterations, cancel_poll)
     if precond is None:
         def precond(r):
             return invd * r
@@ -192,6 +205,52 @@ def _flat_pcg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
                 rz_new = dot(r, z)
                 p = z + (rz_new / rz) * p
                 rz = rz_new
+            it += 1
+            lp.at(it)
+            if cancel_poll > 0 and it % cancel_poll == 0 and cancel.is_requested():
+                break
+    return x, it, rr
+
+
+def _fused_jacobi_pcg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
+                      x0: torch.Tensor, invd: torch.Tensor, threshold: torch.Tensor,
+                      max_iterations: int, cancel_poll: int):
+    """:func:`_flat_pcg`'s Jacobi loop with its vector work in the three
+    kernels of ``ops/cg_update.py``: x, r, z and p allocated once and
+    updated in place, alpha and beta formed on the device, rr and rz kept
+    in device scalars (rz in two that swap, as ``cg_direction`` reads one
+    and writes the other), the cross-block sums finished by the kernel
+    that reads them.  An iteration makes 14 passes over the vector and
+    4 launches beside the apply: ``dot(p, ap)``, ``cg_update``,
+    ``cg_jacobi``, ``cg_direction``.  The same recurrence, order of updates,
+    stop test and spans as the loop of :func:`_flat_pcg`, and ``cg.update``
+    around each ``cg_update`` inside the first ``cg.vector``; the sums
+    round otherwise."""
+    x = x0.clone()
+    r = b - A(x0)
+    z = torch.empty_like(r)
+    p = torch.empty_like(r)
+    scalars = torch.empty(3, dtype=r.dtype, device=r.device)
+    rr, rz, rz_next = scalars.unbind()
+    rr.copy_(torch.dot(r, r))
+    torch.mul(invd, r, out=z)
+    rz.copy_(torch.dot(r, z))
+    p.copy_(z)
+    rr_part = cg_update.partials(r.numel(), r.device)
+    rz_part = torch.zeros_like(rr_part)
+    it = 0
+    with trace.loop() as lp:
+        while it < max_iterations and _above(rr, threshold):
+            ap = A(p)
+            with trace.span("cg.vector"):
+                pap = torch.dot(p, ap)
+                with trace.span("cg.update"):
+                    cg_update.cg_update(x, r, p, ap, rz, pap, rr_part)
+            with trace.span("cg.precond"):
+                cg_update.cg_jacobi(r, invd, z, rz_part)
+            with trace.span("cg.vector"):
+                cg_update.cg_direction(z, p, rr_part, rz_part, rz, rr, rz_next)
+                rz, rz_next = rz_next, rz
             it += 1
             lp.at(it)
             if cancel_poll > 0 and it % cancel_poll == 0 and cancel.is_requested():

@@ -30,7 +30,10 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 _MATVEC_HEADERS = ("fused_apply.cuh", "tile.cuh", "tau_tile.cuh", "dt_tile.cuh")
 SOURCES = {"fused_apply": ("fused_apply.cu", _MATVEC_HEADERS),
            "level_apply": ("level_apply.cu", _MATVEC_HEADERS),
-           "probe_kernels": ("probe_kernels.cu", ("probe_kernels.cuh",))}
+           "probe_kernels": ("probe_kernels.cu", ("probe_kernels.cuh",)),
+           "cg_update": ("cg_update.cu", ())}
+# the libraries a solve on the card loads (the apply's and the CG's)
+SOLVE_STEMS = ("fused_apply", "level_apply", "cg_update")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, dict] = {}
@@ -90,10 +93,12 @@ def build(*stems: str) -> Dict[str, dict]:
 
 
 def load(stem: str) -> ctypes.CDLL:
-    """The loaded library (built first if missing).  The modules that call
-    its entry points declare their argument types."""
+    """The loaded library, built first if missing; a library a solve loads
+    is built together with the others of ``SOLVE_STEMS``, so a fresh
+    checkout's first solve waits for one round of ``nvcc``.  The modules
+    that call its entry points declare their argument types."""
     lib = _loaded.get(stem)
     if lib is None:
-        build(stem)
+        build(*(SOLVE_STEMS if stem in SOLVE_STEMS else (stem,)))
         lib = _loaded[stem] = ctypes.CDLL(str(library_path(stem)))
     return lib

@@ -6,8 +6,9 @@ run as ``python -m adaptiveviscositysolver_tpu_torch.tools.<name>``:
 * ``profile_levels`` -- one apply taken apart: each level's kernels, the
   level-0 stream floor (T2) and a one-op floor;
 * ``time_kernels`` -- each matvec kernel's time per apply at buckling-96,
-  -192 and -256's routes (card only; it times another checkout's package
-  too, for an A/B in one run).
+  -192 and -256's routes, and the CG kernels' per iteration at their
+  vector lengths (card only; it times another checkout's package too, for
+  an A/B in one run).
 
 The first two run on the card (``--device cpu`` exists for the tests; its
 times are host-clock times of the plain versions, not device times).

@@ -12,11 +12,17 @@ around each launch, back to back as in the CG loop (L2 warm; the launches
 are queued behind a spin of the device, so the events time the device, not
 the host's Python between launches), over REPS applies; beside each, the
 device-memory bytes its pass must move (``fused_apply.kernel_bytes``, the
-bound's numerator).  Prints one JSON line.
+bound's numerator).  Beside them, at each scene's CG vector length (the
+canonical grids, flat), one iteration's vector work: the CG kernels
+``cg_update``, ``cg_jacobi`` and ``cg_direction`` and the ``torch.dot`` of
+p and Ap in milliseconds per iteration, against the 14 passes over the
+vector they must make at 3.35 and 2.56 TB/s, and the loop of 12 PyTorch
+ops they replaced (``torch_loop``).  Prints one JSON line.
 
 The timers use only wrappers the package has had since the level kernels
 came in, so one run on the card can time two checkouts: run this file by its path
-with the other checkout first on ``PYTHONPATH``.
+with the other checkout first on ``PYTHONPATH``.  A checkout without the
+CG kernels reports ``torch_loop`` alone.
 """
 
 from __future__ import annotations
@@ -89,6 +95,78 @@ def time_fused_levels(args, metas, enh, reps):
             sum(e[1].elapsed_time(e[2]) for e in ev) / reps)
 
 
+# passes over the CG vector of one iteration's vector work: dot(p, Ap) 2,
+# cg_update 6, cg_jacobi 3, cg_direction 3 (each vector read or written once)
+CG_PASSES = 14
+HBM_BYTES_PER_S = (3.35e12, 2.56e12)
+
+
+def _timed(fns, reps):
+    """Milliseconds per call of each of ``fns``, called in turn ``reps``
+    times behind a spin, from CUDA events around each call."""
+    for fn in fns:
+        fn()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
+          for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * len(fns) * reps)
+    for e in ev:
+        e[0].record()
+        for i, fn in enumerate(fns):
+            fn()
+            e[i + 1].record()
+    torch.cuda.synchronize()
+    return [sum(e[i].elapsed_time(e[i + 1]) for e in ev) / reps for i in range(len(fns))]
+
+
+def time_cg(n: int, reps: int, device="cuda") -> Dict[str, object]:
+    """One CG iteration's vector work over vectors of ``n`` samples, in
+    ms: the three CG kernels and the dot of p and Ap, the kernels' plain
+    versions (``plain``), and the loop of PyTorch ops they replaced; the
+    bound of 14 passes."""
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    x, r, p, ap = (torch.randn(n, generator=gen).to(device) for _ in range(4))
+    invd = (torch.rand(n, generator=gen) + 0.5).to(device)
+    z = torch.empty_like(r)
+    bound = CG_PASSES * 4 * n
+    res: Dict[str, object] = {"n": n, "bytes": bound,
+                              "bound_ms": [1e3 * bound / bw for bw in HBM_BYTES_PER_S]}
+    rz = torch.dot(r, r)
+
+    def torch_loop():
+        # operator._flat_pcg's Jacobi iteration after the apply
+        alpha = rz / torch.dot(p, ap)
+        xn = x + alpha * p
+        rn = r - alpha * ap
+        torch.dot(rn, rn)
+        zn = invd * rn
+        rz_new = torch.dot(rn, zn)
+        return xn, zn + (rz_new / rz) * p
+
+    res["torch_loop"] = _timed([torch_loop], reps)[0]
+    try:
+        from adaptiveviscositysolver_tpu_torch.ops import cg_update as cg
+    except ImportError:
+        return res
+    part, part_z = cg.partials(n, device), cg.partials(n, device)
+    # alpha 1e-3 and beta about n 1e-30: the vectors stay finite over the reps
+    rz_a, pap, rz_b, rr, rz_new = torch.tensor([1e-3, 1.0, 1e30, 0.0, 0.0],
+                                               device=device).unbind()
+    names = ("dot", "cg_update", "cg_jacobi", "cg_direction")
+    times = _timed([lambda: torch.dot(p, ap),
+                    lambda: cg.cg_update(x, r, p, ap, rz_a, pap, part),
+                    lambda: cg.cg_jacobi(r, invd, z, part_z),
+                    lambda: cg.cg_direction(z, p, part, part_z, rz_b, rr, rz_new)], reps)
+    res.update(zip(names, times))
+    res["iteration"] = sum(times)
+    one, one_z = torch.zeros(2, 1, dtype=torch.float64, device=device).unbind()
+    res["plain"] = dict(zip(names[1:], _timed(
+        [lambda: cg.plain_cg_update(x, r, p, ap, rz_a, pap, one),
+         lambda: cg.plain_cg_jacobi(r, invd, z, one_z),
+         lambda: cg.plain_cg_direction(z, p, one, one_z, rz_b, rr, rz_new)], reps)))
+    return res
+
+
 def scene_system(n: int, device="cuda"):
     """buckling-n's system as make_solver builds it on a first frame."""
     state = scenes.buckling(n=n, device=device)
@@ -116,6 +194,7 @@ def time_scene(n: int, reps: int, device="cuda") -> Dict[str, object]:
             res[f"level{l}"] = dict(zip(("tau_level", "dt_level"), time_level_pair(
                 args[l], metas[l], sys_.canons[l], True, reps)),
                 bytes=fa.kernel_bytes([metas[l]]))
+    res["cg"] = time_cg(sum(v.numel() for v in u.values()), reps, device)
     return res
 
 

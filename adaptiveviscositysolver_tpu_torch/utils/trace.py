@@ -31,7 +31,10 @@ The port's spans, by where they open:
 
 * ``operator``: ``cg.apply`` around each CG apply, ``cg.vector``,
   ``cg.precond`` and ``cg.converged`` (the stop test's read-back) in the
-  CG's loop; ``apply.capture`` and ``apply.replay`` in ``ApplyGraph``;
+  CG's loop, and ``cg.update`` around the ``cg_update`` kernel inside the
+  first ``cg.vector`` of each iteration of the fused Jacobi loop
+  (``_fused_jacobi_pcg``); ``apply.capture`` and ``apply.replay`` in
+  ``ApplyGraph``;
   under iterative refinement (``pcg_refined``) ``refine.residual`` around
   each float64 residual (passes + 1 a solve) and ``refine.inner`` around
   each pass's float32 inner solve (passes), whose applies alone open

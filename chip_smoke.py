@@ -48,6 +48,15 @@ Phases (one line each, elapsed seconds first):
                 share of its bound and its time over its CSR call's (the
                 routed levels' A and W D); A/B of the default routes against
                 every level fused
+  5b cg      -- the Jacobi CG's vector-update kernels (cg_update, cg_jacobi,
+                cg_direction) once each on card vectors of buckling-192's
+                CG length (its canonical grids, flat) against their plain
+                versions on the same inputs: vectors within 2 ulp, rr and
+                rz' within 1e-6 relative of a float64 sum of the kernels' r
+                and z; each kernel's and its plain version's time per
+                iteration with CUDA events, and its bound (its passes over
+                the vector at the memory rate; with the dot of p and Ap, 14
+                passes an iteration); the loop of PyTorch ops they replaced
   6 256      -- scenes.buckling(256): one frame on the default routes (brick
                 and split) against one with every level fused (an unbounded
                 budget), each through a make_solver of its own: launch counts
@@ -132,6 +141,10 @@ Phases (one line each, elapsed seconds first):
                 counts (EXPECT_FIRST_64, +- 2); native.available() and the
                 package's top-level make_solver / solve_viscosity
 
+Phases 3, 5, 7, 11 and 12 also read the CG kernels' launch counts around
+their first frame: each kernel once per iteration of a float32 Jacobi CG
+(phase 11: of its inner CGs); phase 10's Chebyshev frames launch none.
+
 Phase 3 also runs the make_solver cache: a fresh solver's 3 frames of
 buckling-96 (only the first probes; one cached topology; the cold and cached
 build_system times) and the cuda frame against the float64 whole-array
@@ -140,7 +153,8 @@ solve of the same frame (velocity within rel 5e-4, iterations +- 2).
 The last lines are a ``{"kernels": [...]}`` JSON line (the four matvec
 kernels also carry their registers, spill bytes, shared memory per block
 and resident blocks per SM, and their phase-13 numbers on a rank's local
-boxes under "sharded"; "paths" names the paths each runs on), the
+boxes under "sharded"; the CG kernels' rows are phase 5b's; "paths"
+names the paths each runs on), the
 nvidia-smi line, and ``{"ok": true,
 "device": {...}}``.  Every failed check raises; the whole
 run is bounded by an in-process deadline.  It imports nothing of JAX.
@@ -186,6 +200,10 @@ REPLACES = {
     "dt_level": f"{_PA}:913 (_make_dt_kernel) + :751-843 (_level_kernel, bricked branch)",
     "banded_apply": "tools/calibrate_bandwidth.py:30 (banded_kernel; pallas_call at :63)",
     "stream_floor": "tools/profile_levels.py:128 (dma_kernel; pallas_call at :163)",
+    # the JAX CG's vector ops, which XLA fuses: no Pallas kernel
+    "cg_update": "adaptiveviscositysolver_tpu/operator.py:284-287 (_flat_pcg's loop body)",
+    "cg_jacobi": "adaptiveviscositysolver_tpu/operator.py:288-289 (_flat_pcg's loop body)",
+    "cg_direction": "adaptiveviscositysolver_tpu/operator.py:290 (_flat_pcg's loop body)",
 }
 # the paths each kernel runs on (phases 3-14); "sharded": B6, the kernels on
 # a rank's halo-filled local boxes (phase 13); "example": the buckling
@@ -194,10 +212,17 @@ _FUSED_PATHS = ["single-device", "chebyshev", "refined", "flip", "sharded", "exa
 _LEVEL_PATHS = ["single-device", "chebyshev", "sharded"]
 PATHS = {"fused_tau": _FUSED_PATHS, "fused_dt": _FUSED_PATHS, "tau_level": _LEVEL_PATHS,
          "dt_level": _LEVEL_PATHS, "banded_apply": ["probe tools"],
-         "stream_floor": ["probe tools"]}
+         "stream_floor": ["probe tools"],
+         **dict.fromkeys(("cg_update", "cg_jacobi", "cg_direction"),
+                         ["single-device", "refined", "flip"])}
 SOURCE = {"fused_tau": "fused_apply.cu", "fused_dt": "fused_apply.cu",
           "tau_level": "level_apply.cu", "dt_level": "level_apply.cu",
-          "banded_apply": "probe_kernels.cu", "stream_floor": "probe_kernels.cu"}
+          "banded_apply": "probe_kernels.cu", "stream_floor": "probe_kernels.cu",
+          "cg_update": "cg_update.cu", "cg_jacobi": "cg_update.cu", "cg_direction": "cg_update.cu"}
+# each CG kernel's passes over the flat vector (each vector read or written
+# once) and float32 operations per sample; with the dot of p and Ap (2
+# passes) an iteration makes 14
+CG_PASSES = {"cg_update": (6, 6), "cg_jacobi": (3, 3), "cg_direction": (3, 2)}
 
 EXAMPLE = "adaptiveviscositysolver_tpu_torch.examples.run_buckling"
 EXAMPLE_FRAMES = 5          # the example's defaults: 5 frames at 64^3
@@ -396,6 +421,54 @@ def bound(nbytes, nflops):
     return (max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations")
 
 
+def ulps(got, want):
+    """The largest |got - want| in units in the last place of float32
+    ``want``."""
+    import torch
+
+    a = want.abs()
+    spacing = torch.nextafter(a, torch.full_like(a, math.inf)) - a
+    return float(((got - want).abs() / spacing.clamp_min(torch.finfo(torch.float32).tiny)).max())
+
+
+def cg_kernel_errors(n, dev, seed):
+    """Each CG kernel once on card vectors of ``n`` samples against its
+    plain version on the same inputs, in the CG's order: per kernel the
+    largest absolute and ulp difference of the vectors it writes (at most
+    2 ulp); then rr and rz' against a float64 sum of the kernels' r and z
+    (within 1e-6 relative)."""
+    import torch
+    from adaptiveviscositysolver_tpu_torch.ops import cg_update as cgk
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x, r, p, ap = (torch.randn(n, generator=gen).to(dev) for _ in range(4))
+    invd = (torch.rand(n, generator=gen) + 0.5).to(dev)
+    rz, pap, rr, rz_new, rr_p, rz_p = torch.tensor([0.75, 1.5, 0, 0, 0, 0], device=dev).unbind()
+    part = cgk.partials(n, dev)
+    part_z = torch.empty_like(part)
+    one, one_z = torch.zeros(2, 1, dtype=torch.float64, device=dev).unbind()
+    z, zp, xp, rp = torch.empty_like(r), torch.empty_like(r), x.clone(), r.clone()
+    cgk.plain_cg_update(xp, rp, p, ap, rz, pap, one)
+    cgk.cg_update(x, r, p, ap, rz, pap, part)
+    cgk.plain_cg_jacobi(r, invd, zp, one_z)
+    cgk.cg_jacobi(r, invd, z, part_z)
+    pp = p.clone()
+    cgk.plain_cg_direction(z, pp, part, part_z, rz, rr_p, rz_p)
+    cgk.cg_direction(z, p, part, part_z, rz, rr, rz_new)
+    errs = {}
+    for name, pairs in (("cg_update", ((x, xp), (r, rp))), ("cg_jacobi", ((z, zp),)),
+                        ("cg_direction", ((p, pp),))):
+        worst_ulp = max(ulps(g, w) for g, w in pairs)
+        assert worst_ulp <= 2.0, f"{name}: {worst_ulp} ulp from its plain version"
+        errs[name] = (max(float((g - w).abs().max()) for g, w in pairs), worst_ulp)
+    r64, z64 = r.double(), z.double()
+    sums = {}
+    for name, got, want in (("rr", rr, r64 @ r64), ("rz", rz_new, r64 @ z64)):
+        sums[name] = abs(float(got) - float(want)) / abs(float(want))
+        assert sums[name] <= 1e-6, f"{name}: {float(got)} vs float64 {float(want)}"
+    return errs, sums
+
+
 def pads_zero(out, res_per_level, canons, what):
     """Every canonical pad of an apply's output is exactly zero (the CG's
     flat vector spans the whole box)."""
@@ -577,9 +650,11 @@ def main():
     from adaptiveviscositysolver_tpu_torch import scenes, solver
     from adaptiveviscositysolver_tpu_torch.config import SolverConfig
     from adaptiveviscositysolver_tpu_torch.ops import _build, probes
+    from adaptiveviscositysolver_tpu_torch.ops import cg_update as cgk
     from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
     from adaptiveviscositysolver_tpu_torch.tools import calibrate_bandwidth, call_ms, profile_levels
-    from adaptiveviscositysolver_tpu_torch.tools.time_kernels import (time_fused_levels,
+    from adaptiveviscositysolver_tpu_torch.tools.time_kernels import (time_cg,
+                                                                      time_fused_levels,
                                                                       time_level_pair)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -615,6 +690,7 @@ def main():
         design[name] = info
         log("build", f"{name} ({kernel}): {info}")
     probes._library()
+    cgk._library()
 
     # ---- 2 kernels against their plain versions, on buckling-96's frame
     cfg = SolverConfig(octree_levels=4, tolerance=1e-4)
@@ -724,14 +800,17 @@ def main():
     solve = solver.make_solver(cfg, device=dev)
     torch.cuda.synchronize()
     fa.reset_launch_counts()
+    cgk.reset_launch_counts()
     t = time.perf_counter()
     res = solve(state, dt)
     for v in res.velocity:
         v.sum().item()
     cold_s = time.perf_counter() - t
     launches = dict(fa.launch_counts)
+    cg_launches = dict(cgk.launch_counts)
     st = res.stats
-    log("solve", f"cold frame {cold_s:.3f} s: {st} | launches {launches}")
+    log("solve", f"cold frame {cold_s:.3f} s: {st} | launches {launches} {cg_launches}")
+    assert cg_launches == dict.fromkeys(cg_launches, st.iterations), (cg_launches, st.iterations)
     assert st.solve_path == "cuda", st.solve_path
     assert len(st.active_cells) == EXPECT["levels"], st.active_cells
     assert st.octree_dofs == EXPECT["octree_dofs"], st.octree_dofs
@@ -852,12 +931,14 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    cgk.reset_launch_counts()
     t = time.perf_counter()
     res2 = solve(st2, dt)
     for v in res2.velocity:
         v.sum().item()
     cold2_s = time.perf_counter() - t
     launches2 = dict(fa.launch_counts)
+    cg_launches2 = dict(cgk.launch_counts)
     peak2 = torch.cuda.max_memory_allocated()
     st_2 = res2.stats
     lv2, win2 = solver.probe_topology(st2, cfg, device=dev)
@@ -879,6 +960,8 @@ def main():
     assert st_2.residual <= 1e-4, st_2.residual
     assert launches2["tau_level"] > 0 and launches2["dt_level"] > 0, launches2
     check_launches(launches2, st_2.applies, sys2.canons, modes2, "192")
+    assert cg_launches2 == dict.fromkeys(cg_launches2, st_2.iterations), (cg_launches2,
+                                                                          st_2.iterations)
     for a, v in enumerate(res2.velocity):
         assert tuple(v.shape) == tuple(n2 + (1 if d == a else 0) for d in range(3)), v.shape
         assert bool(torch.isfinite(v).all()), f"192: velocity {a} not finite"
@@ -971,6 +1054,22 @@ def main():
                f"{l0_routed[0]:.4f} + dt_level {l0_routed[1]:.4f} ms, split tau_level "
                f"{l0_split[0]:.4f} + dt_level {l0_split[1]:.4f} ms, fused_tau {l0_fused[0]:.4f} "
                f"+ fused_dt {l0_fused[1]:.4f} ms | {smi}")
+
+    # ---- 5b the CG kernels at the main path's CG length: the canonical grids, flat
+    n_cg = sum(v.numel() for v in u2.values())
+    cg_err, cg_sums = cg_kernel_errors(n_cg, dev, 5)
+    cg_t = time_cg(n_cg, 20)
+    for name, (passes, ops) in CG_PASSES.items():
+        bounds[name] = bound(passes * 4 * n_cg, ops * n_cg)
+    log("cg", f"{n_cg} samples, {cgk.grid_blocks(n_cg, dev)} blocks; vs plain: "
+              + ", ".join(f"{k} max abs {a:.3e} ({u:.1f} ulp)" for k, (a, u) in cg_err.items())
+              + f"; rr rel {cg_sums['rr']:.2e}, rz rel {cg_sums['rz']:.2e} of a float64 sum; "
+              + "per iteration: " + ", ".join(
+                  f"{k} {cg_t[k]:.4f} ms (plain {cg_t['plain'][k]:.4f} ms, bound "
+                  f"{bounds[k][0]:.4f} ms)" for k in CG_PASSES)
+              + f", dot(p, Ap) {cg_t['dot']:.4f} ms; iteration {cg_t['iteration']:.4f} ms "
+              f"against 14 passes {cg_t['bound_ms'][0]:.4f} ms; the loop of PyTorch ops "
+              f"{cg_t['torch_loop']:.4f} ms | {smi}")
     v192_jacobi = res2.velocity
     del sys2, apply_f, args2, u2, u2_log, res2, r
 
@@ -1055,16 +1154,19 @@ def main():
     solve_b = solver.make_solver(cfg, device=dev)
     torch.cuda.synchronize()
     fa.reset_launch_counts()
+    cgk.reset_launch_counts()
     t = time.perf_counter()
     rb = solve_b(beam, dt)
     for v in rb.velocity:
         v.sum().item()
     beam_cold_s = time.perf_counter() - t
     launches_b = dict(fa.launch_counts)
+    cg_launches_b = dict(cgk.launch_counts)
     ((lv_b, win_b),) = solve_b.cache_info()["windows"].items()
     canons_b = fa.level_canons([tuple(64 >> l for _ in range(3)) for l in range(lv_b)], win_b)
     modes_b = fa.level_modes(canons_b, fa.route_budget(dev))
     sb = rb.stats
+    assert cg_launches_b == dict.fromkeys(cg_launches_b, sb.iterations), (cg_launches_b, sb)
     beam_warm = []
     for _ in range(3):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1217,6 +1319,7 @@ def main():
         solve_k = solver.make_solver(cfg_cheb, device=dev)
         torch.cuda.synchronize()
         fa.reset_launch_counts()
+        cgk.reset_launch_counts()
         t = time.perf_counter()
         rk = solve_k(st_c, dt)
         for v in rk.velocity:
@@ -1237,6 +1340,8 @@ def main():
         assert sk.residual <= 1e-4, sk.residual
         assert sk.applies == 13 + 1 + (k - 1) + k * sk.iterations, (sk.applies, sk.iterations)
         check_launches(launches_k, sk.applies, canons_k, modes_k, f"cheb {n_c}")
+        # Chebyshev keeps the CG loop of PyTorch ops
+        assert not any(cgk.launch_counts.values()), cgk.launch_counts
         if n_c in EXPECT_CHEB:
             assert abs(sk.iterations - EXPECT_CHEB[n_c]) <= 2, (sk.iterations, EXPECT_CHEB[n_c])
         scale_k = max(float(v.abs().max()) for v in v_ref)
@@ -1345,12 +1450,14 @@ def main():
     try:
         torch.cuda.synchronize()
         fa.reset_launch_counts()
+        cgk.reset_launch_counts()
         t = time.perf_counter()
         rr = solver.solve_viscosity(st_r, dt, dataclasses.replace(
             cfg_r, use_iterative_refinement=True), device=dev)
         torch.cuda.synchronize()
         refined_s = time.perf_counter() - t
         launches_r = dict(fa.launch_counts)
+        cg_launches_r = dict(cgk.launch_counts)
     finally:
         port_operator.pcg_refined = pcg_refined
     t = time.perf_counter()
@@ -1367,6 +1474,9 @@ def main():
     assert inner and set(inner) == {frozenset({torch.float32})}, set(inner)
     # every inner apply runs the kernels; the float64 residuals run v1
     check_launches(launches_r, len(inner), canons_r, modes_r, "refined inner applies")
+    # the inner CGs run the CG kernels: once each per inner iteration
+    assert cg_launches_r == dict.fromkeys(cg_launches_r, rr.stats.iterations), (
+        cg_launches_r, rr.stats.iterations)
     assert rr.stats.applies > len(inner) > rr.stats.iterations
     assert rr.stats.residual <= 1e-9 and rv.stats.residual <= 1e-9
     assert rel_r < 1e-5, rel_r
@@ -1405,6 +1515,7 @@ def main():
     modes_f = fa.level_modes(canons_f, fa.route_budget(dev))
     torch.cuda.synchronize()
     fa.reset_launch_counts()
+    cgk.reset_launch_counts()
     t = time.perf_counter()
     flip_out, flip_stats = flip.simulate(scenes.buckling(n=n_f, device=dev), 3, dt, cfg_flip,
                                          device=dev)
@@ -1421,6 +1532,9 @@ def main():
     assert all(bool(torch.isfinite(v).all()) for v in flip_out.velocity)
     assert vy < 0.0, vy
     check_launches(launches_f, sum(s_f.applies for s_f in flip_stats), canons_f, modes_f, "flip")
+    flip_iters = sum(s_f.iterations for s_f in flip_stats)
+    assert cgk.launch_counts == dict.fromkeys(cgk.launch_counts, flip_iters), (
+        cgk.launch_counts, flip_iters)
 
     solve_x = solver.make_solver(dataclasses.replace(cfg, cancel_poll_iters=16), device=dev)
     cancel.request()
@@ -1730,6 +1844,10 @@ def main():
                          t1_plain_ms, None),
         "stream_floor": (probe_launches["stream_floor"], err["stream_floor"][0], t2_ms,
                          t2_plain_ms, None),
+        # phase 5b's, beside the launches of phase 5's cold frame; no one
+        # library call computes any of them
+        **{name: (cg_launches2[name], cg_err[name][0], cg_t[name], cg_t["plain"][name], None)
+           for name in CG_PASSES},
     }
     kernels = []
     for name, (n_launch, err, ms, plain_ms, library_ms) in measured.items():
@@ -1766,6 +1884,9 @@ def main():
                  "cg_iterations": [sd.iterations, sf.iterations],
                  "peak_gib": {"default": memd / 2**30, "fused": memf / 2**30},
                  "kernel_ms": k3},
+        "cg": {"n": n_cg, "max_ulp": {k: u for k, (_, u) in cg_err.items()}, "sums_rel": cg_sums,
+               "dot_ms": cg_t["dot"], "iteration_ms": cg_t["iteration"],
+               "iteration_bound_ms": cg_t["bound_ms"][0], "torch_loop_ms": cg_t["torch_loop"]},
         "b96_cache": {"build_system_ms": build_ms, "probe_ms": cache_stages[0]["probe"] * 1e3,
                       "build_system_ms_192_cached": stages2["build_system"] * 1e3},
         "b96_vs_v1": {"rel": diff96 / scale96, "v1_s": v1_96_s},

@@ -3,9 +3,12 @@ all-level kernels (fused_tau, fused_dt) and its probe kernels (banded_apply,
 stream_floor) against their plain versions, a
 routed solve, a Chebyshev solve and two FLIP frames on the card against the
 same on the CPU, refined float64 solves against the float64 v1 solve,
-make_solver's cached topology on the card against fresh solves, and the
+make_solver's cached topology on the card against fresh solves, the
 sharded solve on 2 gloo ranks sharing the card (buckling-32 on both routes,
-buckling-192) against the single-device card solve.
+buckling-192) against the single-device card solve, and the Jacobi CG's
+vector-update kernels (cg_update, cg_jacobi, cg_direction) against their
+plain versions and, in make_solver's solves, against the CG loop of
+PyTorch ops.
 
 Nothing here imports JAX, so this file also runs on a machine that has a
 card and no JAX; there the suite's conftest (which sets JAX up) is left out:
@@ -28,8 +31,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from adaptiveviscositysolver_tpu_torch import scenes, solver
+from adaptiveviscositysolver_tpu_torch import operator, scenes, solver
 from adaptiveviscositysolver_tpu_torch.config import SolverConfig
+from adaptiveviscositysolver_tpu_torch.ops import cg_update as cg
 from adaptiveviscositysolver_tpu_torch.ops import fused_apply as fa
 from adaptiveviscositysolver_tpu_torch.ops import probes
 
@@ -565,3 +569,90 @@ def test_sharded_192_frame_on_card_matches_single_device():
     for a in range(3):
         got = torch.from_numpy(ranks[0]["velocity"][a])
         assert float((got - want.velocity[a].cpu()).abs().max()) / scale < 5e-4
+
+
+def _ulps(got, want):
+    """|got - want| in units in the last place of float32 ``want``."""
+    spacing = torch.nextafter(want.abs(), torch.tensor(float("inf"), device=want.device)) \
+        - want.abs()
+    return (got - want).abs() / spacing.clamp_min(torch.finfo(torch.float32).tiny)
+
+
+def _cg_iteration(vec, rz, pap, blocks):
+    """One iteration of the three CG kernels on copies of ``vec`` (x, r,
+    p, ap, invd): the vectors, the partials and the scalars they leave."""
+    x, r, p, ap, invd = (v.clone() for v in vec)
+    z = torch.empty_like(r)
+    rr_part = torch.full((blocks,), float("nan"), dtype=torch.float64, device="cuda")
+    rz_part = rr_part.clone()
+    rr, rz_new = torch.full((2,), float("nan"), device="cuda").unbind()
+    cg.cg_update(x, r, p, ap, rz, pap, rr_part)
+    cg.cg_jacobi(r, invd, z, rz_part)
+    cg.cg_direction(z, p, rr_part, rz_part, rz, rr, rz_new)
+    return {"x": x, "r": r, "z": z, "p": p, "rr_part": rr_part, "rz_part": rz_part,
+            "rr": rr, "rz": rz_new}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4097, 20_000_003])
+def test_cg_kernels_match_plain_on_card(n):
+    """One iteration of cg_update, cg_jacobi and cg_direction against their
+    plain versions on the same card tensors, at lengths that are not
+    multiples of 4 (the tail): x, r, z and p within 2 ulp, rr and rz within
+    1e-6 relative of a float64 sum of the kernels' own r and z, one launch
+    each, and a second run equal bit for bit (partials included)."""
+    _need_card()
+    g = torch.Generator().manual_seed(n % 1000)
+    vec = [torch.randn(n, generator=g).cuda() for _ in range(4)]
+    vec.append((torch.rand(n, generator=g) + 0.5).cuda())
+    rz, pap = torch.tensor([0.75, 1.5], device="cuda").unbind()
+    blocks = cg.grid_blocks(n, "cuda")
+    assert cg.partials(n, "cuda").numel() == blocks
+    assert blocks == min(8 * torch.cuda.get_device_properties(0).multi_processor_count,
+                         -(-n // 1024))
+    before = dict(cg.launch_counts)
+    got = _cg_iteration(vec, rz, pap, blocks)
+    assert {k: cg.launch_counts[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+    x, r, p, ap, invd = (v.clone() for v in vec)
+    z = torch.empty_like(r)
+    part, part_z = (torch.zeros(1, dtype=torch.float64, device="cuda") for _ in range(2))
+    rr, rz_new = torch.zeros(2, device="cuda").unbind()
+    cg.plain_cg_update(x, r, p, ap, rz, pap, part)
+    cg.plain_cg_jacobi(r, invd, z, part_z)
+    cg.plain_cg_direction(z, p, part, part_z, rz, rr, rz_new)
+    for name, want in (("x", x), ("r", r), ("z", z), ("p", p)):
+        assert float(_ulps(got[name], want).max()) <= 2.0, name
+    r64, z64 = got["r"].double(), got["z"].double()
+    for name, want in (("rr", r64 @ r64), ("rz", r64 @ z64)):
+        assert abs(float(got[name]) - float(want)) <= 1e-6 * abs(float(want)), name
+    again = _cg_iteration(vec, rz, pap, blocks)
+    for name in got:
+        assert torch.equal(got[name], again[name]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene,n", [("buckling", 96), ("beam", 64)])
+def test_fused_cg_on_card_matches_todays_loop(monkeypatch, scene, n):
+    """A make_solver frame whose CG runs the three kernels against the same
+    frame with the CG loop of PyTorch ops (``operator._fuses`` refusing
+    every solve): each kernel launched once an iteration, ``cg.update`` once an
+    iteration, iterations within +-1, velocity within rel 5e-4."""
+    _need_card()
+    state = getattr(scenes, scene)(n=n, device="cuda")
+    cfg = SolverConfig(octree_levels=4 if scene == "buckling" else 3, tolerance=1e-4)
+    cg.reset_launch_counts()
+    log = _Counting()
+    got = solver.make_solver(cfg, device="cuda")(state, DT, stage_times=log)
+    it = got.stats.iterations
+    assert got.stats.solve_path == "cuda" and got.stats.residual <= 1e-4
+    assert cg.launch_counts == dict.fromkeys(cg.launch_counts, it)
+    assert log.entries["cg.update"] == log.entries["cg.precond"] == it
+    monkeypatch.setattr(operator, "_fuses", lambda b, precond, dot: False)
+    log = _Counting()
+    want = solver.make_solver(cfg, device="cuda")(state, DT, stage_times=log)
+    assert "cg.update" not in log.entries
+    assert cg.launch_counts == dict.fromkeys(cg.launch_counts, it)
+    assert abs(it - want.stats.iterations) <= 1, (it, want.stats.iterations)
+    scale = max(float(v.abs().max()) for v in want.velocity)
+    for a in range(3):
+        assert float((got.velocity[a] - want.velocity[a]).abs().max()) / scale < 5e-4
