@@ -385,55 +385,70 @@ class ApplyGraph:
         self.graph = self.static_in = self.static_out = None
 
 
+class _FlatOperator:
+    """The CG's flat operator over a grid-dict ``apply_A`` on grids of
+    ``shapes``: ``pack``/``unpack`` (:func:`make_packer`), and a call that
+    maps a flat vector to ``pack(apply_A(unpack(flat)))``, counted in
+    ``applies`` and spanned ``cg.apply`` (``utils/trace.py``).  An
+    ``apply_A`` marked ``capturable`` (the fused apply's card kernels,
+    ``ops/fused_apply.py``) runs as an :class:`ApplyGraph` over its
+    ``launch_counts``, released when the ``with`` block ends.  The flat
+    apply's result may then be the buffer that the next apply overwrites:
+    no caller keeps it across the next apply (the CG, the Chebyshev
+    preconditioner and the lam_max estimate use it at once)."""
+
+    def __init__(self, apply_A, shapes: Dict[Tuple[int, int], Tuple[int, int, int]]):
+        self.pack, self.unpack = pack, unpack = make_packer(shapes)
+        self.applies = 0
+
+        def flat_apply(flat):
+            return pack(apply_A(unpack(flat)))
+
+        self.graph = None
+        if getattr(apply_A, "capturable", False):
+            self.graph = ApplyGraph(flat_apply, apply_A.launch_counts)
+        self.run = flat_apply if self.graph is None else self.graph
+
+    def __call__(self, flat: torch.Tensor) -> torch.Tensor:
+        self.applies += 1
+        with trace.span("cg.apply"):
+            return self.run(flat)
+
+    def __enter__(self) -> "_FlatOperator":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.graph is not None:
+            self.graph.release()
+
+
 def pcg_flat(apply_A, rhs: UField, x0: UField, diag: UField, tolerance: float,
-             max_iterations: int, cheb_degree: int = 1, cancel_poll: int = 0):
+             max_iterations: int, cheb_degree: int = 1, cancel_poll: int = 0,
+             dot: Callable = torch.dot):
     """PCG with flat-vector state; ``apply_A`` maps grid dicts to grid
-    dicts.  Stops when ||r||_2 <= tol * ||b||_2 (Eigen's rule,
-    cpp:611-631).  ``cheb_degree > 1``: the degree-k Chebyshev
+    dicts and runs through a :class:`_FlatOperator` (a ``capturable`` one
+    replays one CUDA graph).  Stops when ||r||_2 <= tol * ||b||_2 (Eigen's
+    rule, cpp:611-631).  ``cheb_degree > 1``: the degree-k Chebyshev
     preconditioner on a power-iteration lam_max started from ``b``
     (13 applies once), so a solve makes 13 + 1 + (k - 1) + iterations * k
     applies; Jacobi makes 1 + iterations.  ``cancel_poll``: see
-    :func:`_flat_pcg`.  An ``apply_A`` marked ``capturable`` (the fused
-    apply's card kernels, ``ops/fused_apply.py``) runs as an
-    :class:`ApplyGraph` over its ``launch_counts``, released on return.
-    The flat apply's result may then be the buffer that the next apply
-    overwrites: no caller keeps it across the next apply (the CG, the
-    Chebyshev preconditioner and the lam_max estimate use it at once).
-    Returns (x, iterations, relative residual, applies)."""
-    shapes = {k: tuple(v.shape) for k, v in rhs.items()}
-    pack, unpack = make_packer(shapes)
-    applies = 0
-
-    def flat_apply(flat):
-        return pack(apply_A(unpack(flat)))
-
-    graph = None
-    if getattr(apply_A, "capturable", False):
-        graph = ApplyGraph(flat_apply, apply_A.launch_counts)
-    run = flat_apply if graph is None else graph
-
-    def A(flat):
-        nonlocal applies
-        applies += 1
-        with trace.span("cg.apply"):
-            return run(flat)
-
-    try:
-        b = pack(rhs)
-        invd = 1.0 / pack(diag)
-        b_norm2 = torch.dot(b, b)
+    :func:`_flat_pcg`.  ``dot``: the inner product of ||b||^2, the lam_max
+    estimate and the CG (the sharded CG's sums the ranks' local dots:
+    ``parallel/shard_fused.py``).  Returns (x, iterations, relative
+    residual, applies)."""
+    with _FlatOperator(apply_A, {k: tuple(v.shape) for k, v in rhs.items()}) as A:
+        b = A.pack(rhs)
+        invd = 1.0 / A.pack(diag)
+        b_norm2 = dot(b, b)
         threshold = tolerance * tolerance * b_norm2
         precond = None
         if cheb_degree > 1:
-            lam = estimate_lambda_max(A, invd, b)
+            lam = estimate_lambda_max(A, invd, b, dot=dot)
             precond = make_chebyshev_precond(A, invd, lam, cheb_degree)
-        x, iters, rr = _flat_pcg(A, b, pack(x0), invd, threshold, max_iterations,
-                                 precond=precond, cancel_poll=cancel_poll)
-    finally:
-        if graph is not None:
-            graph.release()
+        x, iters, rr = _flat_pcg(A, b, A.pack(x0), invd, threshold, max_iterations,
+                                 precond=precond, cancel_poll=cancel_poll, dot=dot)
     rel = torch.sqrt(rr / b_norm2.clamp_min(1e-300))
-    return unpack(x), iters, rel, applies
+    return A.unpack(x), iters, rel, A.applies
 
 
 def pcg_refined(apply_A_hi, apply_A_lo, rhs: UField, x0: UField, diag: UField,
@@ -447,45 +462,20 @@ def pcg_refined(apply_A_hi, apply_A_lo, rhs: UField, x0: UField, diag: UField,
     acts on rhs-dtype grid dicts, ``apply_A_lo`` on float32 ones: of the
     rhs's shapes, or, given the fused apply's ``embed_tree`` and
     ``crop_tree`` (``ops/fused_apply.py``), canonical ones.  Then each
-    pass embeds its residual once and crops its correction once, and an
-    ``apply_A_lo`` marked ``capturable`` runs as one :class:`ApplyGraph`
-    that every pass's CG replays, released on return (the contract of
-    :func:`pcg_flat`).  Spans (``utils/trace.py``): ``refine.residual``
+    pass embeds its residual once and crops its correction once.  The
+    inner applies run through one :class:`_FlatOperator` for the solve, so
+    a ``capturable`` ``apply_A_lo`` is one :class:`ApplyGraph` that every
+    pass's CG replays.  Spans (``utils/trace.py``): ``refine.residual``
     around each residual (passes + 1), ``refine.inner`` around each
     pass's inner solve, ``cg.apply`` around each inner apply.  Returns
     (x, total inner iterations, relative residual, applies of both)."""
-    shapes = {k: tuple(v.shape) for k, v in rhs.items()}
-    pack, unpack = make_packer(shapes)
+    pack, unpack = make_packer({k: tuple(v.shape) for k, v in rhs.items()})
     lo = torch.float32
-    applies = 0
-    if embed_tree is None:
-        pack_lo, unpack_lo = pack, unpack
-        invd_lo = (1.0 / pack(diag)).to(lo)
-    else:
-        diag_c = embed_tree(diag, fill=1.0)
-        pack_lo, unpack_lo = make_packer({k: tuple(v.shape) for k, v in diag_c.items()})
-        invd_lo = 1.0 / pack_lo(diag_c)
-
-    def flat_lo(flat):
-        return pack_lo(apply_A_lo(unpack_lo(flat)))
-
-    graph = None
-    if getattr(apply_A_lo, "capturable", False):
-        graph = ApplyGraph(flat_lo, apply_A_lo.launch_counts)
-    run = flat_lo if graph is None else graph
-
-    def A_lo(flat):
-        nonlocal applies
-        applies += 1
-        with trace.span("cg.apply"):
-            return run(flat)
-
+    diag_lo = diag if embed_tree is None else embed_tree(diag, fill=1.0)
     b = pack(rhs)
     hi = b.dtype
 
     def residual(x):
-        nonlocal applies
-        applies += 1
         with trace.span("refine.residual"):
             return b - pack(apply_A_hi(unpack(x)))
 
@@ -493,24 +483,23 @@ def pcg_refined(apply_A_hi, apply_A_lo, rhs: UField, x0: UField, diag: UField,
     b_norm2 = torch.dot(b, b)
     threshold = tolerance * tolerance * b_norm2
     itol2 = torch.tensor(inner_tolerance, dtype=lo, device=b.device) ** 2
-    try:
+    with _FlatOperator(apply_A_lo, {k: tuple(v.shape) for k, v in diag_lo.items()}) as A_lo:
+        invd_lo = (1.0 / A_lo.pack(diag_lo)).to(lo)
         r = residual(x)
         total = outer = 0
         while _above(torch.dot(r, r), threshold) and total < max_iterations and outer < max_outer:
             with trace.span("refine.inner"):
                 r_lo = r.to(lo)
                 if embed_tree is not None:
-                    r_lo = pack_lo(embed_tree(unpack(r_lo)))
+                    r_lo = A_lo.pack(embed_tree(unpack(r_lo)))
                 d, it, _ = _flat_pcg(A_lo, r_lo, torch.zeros_like(r_lo), invd_lo,
                                      itol2 * torch.dot(r_lo, r_lo), max_iterations - total)
                 if crop_tree is not None:
-                    d = pack(crop_tree(unpack_lo(d)))
+                    d = pack(crop_tree(A_lo.unpack(d)))
                 x = x + d.to(hi)
             r = residual(x)
             total += it
             outer += 1
-    finally:
-        if graph is not None:
-            graph.release()
     rel = torch.sqrt(torch.dot(r, r) / b_norm2.clamp_min(1e-300))
-    return unpack(x), total, rel, applies
+    # the residuals: one before the first pass and one after each
+    return unpack(x), total, rel, A_lo.applies + outer + 1

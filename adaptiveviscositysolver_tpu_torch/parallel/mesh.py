@@ -17,6 +17,7 @@ the same way (unverified: no such machine has run it).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import os
@@ -247,6 +248,19 @@ def _state_on(spec, device) -> FluidState:
     return convert.fluid_state_from_numpy(**spec, device=device)
 
 
+class _CountingSink(dict):
+    """A ``stage_times`` dict that also counts its writes: one per interval
+    (``utils/trace.py``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.entries = collections.Counter()
+
+    def __setitem__(self, key, value):
+        self.entries[key] += 1
+        super().__setitem__(key, value)
+
+
 def _velocity_np(res: SolveResult) -> List[np.ndarray]:
     return [v.detach().cpu().numpy() for v in res.velocity]
 
@@ -260,7 +274,9 @@ def solve_on_ranks(mesh: Mesh, state, dt, configs: Sequence[SolverConfig], frame
     ``configs`` (under ``budgets[i]`` if given: see :class:`Mesh`),
     ``frames`` times; per config the last frame's stats, velocity (rank 0),
     the rank's routes and x-row ranges, launch and collective counts with
-    their seconds, and each frame's seconds.  ``slab_garbage``: then
+    their seconds, the entries of each stage and span (``spans``: every
+    frame runs with a ``stage_times`` sink, so its stages synchronize the
+    device), and each frame's seconds.  ``slab_garbage``: then
     ``configs[0]`` once more, from a slab with 1e30 in its x faces' ghost
     rows (the owner's values must win)."""
     from ..config import capped_levels
@@ -287,8 +303,9 @@ def solve_on_ranks(mesh: Mesh, state, dt, configs: Sequence[SolverConfig], frame
             shard_fused.reset_collective_counts()
             if mesh.device.type == "cuda":
                 torch.cuda.synchronize(mesh.device)
+            sink = _CountingSink()
             t0 = time.perf_counter()
-            res = solve(sl, dt)
+            res = solve(sl, dt, stage_times=sink)
             for v in res.velocity:
                 v.sum().item()
             seconds.append(time.perf_counter() - t0)
@@ -305,7 +322,8 @@ def solve_on_ranks(mesh: Mesh, state, dt, configs: Sequence[SolverConfig], frame
                     "launches": dict(fa.launch_counts),
                     "collectives": dict(shard_fused.collective_counts),
                     "collective_seconds": dict(shard_fused.collective_seconds),
-                    "seconds": seconds, "device": str(mesh.device)})
+                    "spans": dict(sink.entries), "seconds": seconds,
+                    "device": str(mesh.device)})
     return out
 
 

@@ -430,39 +430,26 @@ def sharded_fused_pcg(mesh, vel_kinds, edge_kinds, center_kinds, we, wc, mass: U
     """Distributed PCG with the fused apply over the 1-D group of ``mesh``
     (the counterpart of ``sharded_pallas_pcg``): every rank calls it with
     the same GLOBAL per-level grids, builds its part of the operator
-    (:func:`sharded_operator`), runs the CG on its local grids with
-    all-reduced dots (Jacobi, or degree-``cheb_degree`` Chebyshev on an
-    all-reduced lam_max estimate) and all-gathers the solution.  The
-    ghost rows of the CG's vectors hold 0 (``invd`` 1), so each DOF counts
-    once in a dot.  Returns (global float32 solution, iterations, relative
-    residual, applies)."""
+    (:func:`sharded_operator`), runs ``operator.pcg_flat`` on its local
+    grids with all-reduced dots (Jacobi, or degree-``cheb_degree``
+    Chebyshev on an all-reduced lam_max estimate) and all-gathers the
+    solution.  The apply is not ``capturable`` (no graph captures a
+    collective), so it runs eagerly, and the CG is the loop of PyTorch ops
+    (``operator._fuses`` takes ``torch.dot`` only).  The ghost rows of the
+    CG's vectors hold 0 (``invd`` 1), so each DOF counts once in a dot.
+    Returns (global float32 solution, iterations, relative residual,
+    applies)."""
     apply_A, embed_tree, gather_tree = sharded_operator(
         mesh, vel_kinds, edge_kinds, center_kinds, we, wc, mass, active, res_per_level, dx,
         enhanced)
-    rhs_c = embed_tree(rhs)
-    pack, unpack = operator.make_packer({k: tuple(v.shape) for k, v in rhs_c.items()})
-    applies = 0
-
-    def A(flat):
-        nonlocal applies
-        applies += 1
-        return pack(apply_A(unpack(flat)))
 
     def dot(x, y):
         return all_reduce_sum(mesh, torch.dot(x, y))
 
-    b = pack(rhs_c)
-    invd = 1.0 / pack(embed_tree(diag, 1.0))
-    b_norm2 = dot(b, b)
-    threshold = tolerance * tolerance * b_norm2
-    precond = None
-    if cheb_degree > 1:
-        lam = operator.estimate_lambda_max(A, invd, b, dot=dot)
-        precond = operator.make_chebyshev_precond(A, invd, lam, cheb_degree)
-    x, iters, rr = operator._flat_pcg(A, b, pack(embed_tree(guess)), invd, threshold,
-                                      max_iterations, precond=precond, dot=dot)
-    rel = torch.sqrt(rr / b_norm2.clamp_min(1e-300))
-    return gather_tree(unpack(x)), iters, rel, applies
+    x, iters, rel, applies = operator.pcg_flat(
+        apply_A, embed_tree(rhs), embed_tree(guess), embed_tree(diag, 1.0), tolerance,
+        max_iterations, cheb_degree=cheb_degree, dot=dot)
+    return gather_tree(x), iters, rel, applies
 
 
 def expected_exchanges(res_per_level, n: int, applies: int = 1) -> Dict[str, int]:

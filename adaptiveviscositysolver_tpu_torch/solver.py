@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,10 +57,11 @@ class SolveStats:
     octree_dofs: int
     regular_dofs: int
     active_cells: List[int]   # per level
-    # which CG path ran: "cuda" (the hand-written kernels), "cuda-plain"
-    # (the same canonical-box apply through the kernels' plain PyTorch
-    # version, on CPU tensors), "v1" / "v1-fused" (the whole-array
-    # operator) or "refined" (mixed-precision iterative refinement)
+    # which CG path ran (``_route``): "cuda" (the hand-written kernels),
+    # "cuda-plain" (the same canonical-box apply through the kernels' plain
+    # PyTorch version, on CPU tensors), either with "-sharded" (the CG over
+    # a mesh's ranks), "v1" / "v1-fused" (the whole-array operator) or
+    # "refined" (mixed-precision iterative refinement)
     solve_path: str = ""
     applies: int = 0          # operator applies made by the solve (both
     # precisions under refinement; the lam_max estimate included).  Under
@@ -202,6 +203,41 @@ def _cast_blocks(blocks, dtype) -> list:
         terms=[dataclasses.replace(t, coeff=c(t.coeff)) for t in b.terms]) for b in blocks]
 
 
+class _Route(NamedTuple):
+    impl: str       # the operator: "cuda" (the fused apply), "v1" or "v1-fused"
+    refined: bool   # mixed-precision iterative refinement
+    sharded: bool   # the CG over the ranks (parallel/shard_fused.py)
+    path: str       # SolveStats.solve_path
+
+
+def _route(config: SolverConfig, dtype: torch.dtype, device: torch.device,
+           ranks: int) -> _Route:
+    """The solve's route from the config, the solve's dtype, the device and
+    the rank count: "auto" takes the fused apply on the card in float32
+    (or under refinement) and whenever the CG is sharded, which it is over
+    more than one rank for "cuda"/"auto" in float32 without refinement.
+    Refuses "cuda" in float64 without refinement."""
+    refined = config.use_iterative_refinement
+    sharded = (ranks > 1 and config.apply_impl in ("cuda", "auto") and dtype == torch.float32
+               and not refined)
+    impl = config.apply_impl
+    if impl == "auto":
+        on_card = device.type == "cuda" and (dtype == torch.float32 or refined)
+        impl = "cuda" if on_card or sharded else "v1"
+    if impl == "cuda" and dtype != torch.float32 and not refined:
+        raise ValueError("apply_impl='cuda' computes in float32; for a float64 solve "
+                         "use use_iterative_refinement=True (float32 inner CG through "
+                         "the fused apply, float64 residual) or apply_impl='v1'")
+    if refined:
+        path = "refined"
+    elif impl == "cuda":
+        path = "cuda" if device.type == "cuda" else "cuda-plain"
+        path += "-sharded" if sharded else ""
+    else:
+        path = impl
+    return _Route(impl, refined, sharded, path)
+
+
 def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *,
                  device="cuda", face_weights: Optional[Sequence[torch.Tensor]] = None,
                  bboxes=None, pad_levels=None,
@@ -216,12 +252,13 @@ def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *
     ``fused_apply.route_budget(device)``).  ``topology``: a
     :class:`Topology` to take the boxes, routes and buffers from (filled
     here if empty); it must have been built for these levels and windows.
-    ``mesh_n > 1``: pad x for a CG sharded over that many ranks and leave
-    the fused operator to it (``apply_A`` None for "cuda")."""
+    ``mesh_n > 1``: pad x for that many ranks; where :func:`_route` shards
+    the CG over them, leave the fused operator to it (``apply_A`` None)."""
     device = torch.device(device)
     with trace.tracing(stage_times, device):
         _validate_state(state)
         state = state.to(device=device, dtype=config.dtype)
+        route = _route(config, state.viscosity.dtype, device, mesh_n)
         dx = state.dx
         extrapolation = config.extrapolation * dx
         orig_res = tuple(state.liquid_sdf.shape)
@@ -294,24 +331,15 @@ def build_system(state: FluidState, dt, config: SolverConfig = SolverConfig(), *
         with trace.stage("build_system"):
             v1_apply, diag = operator.make_operator(blocks, mass, active, res_per_level)
             rhs = operator.boundary_rhs(blocks, mass, guess, active, res_per_level)
-            impl = config.apply_impl
-            refined = config.use_iterative_refinement
-            if impl == "auto":
-                on_card = device.type == "cuda" and (sdtype == torch.float32 or refined)
-                impl = "cuda" if on_card or mesh_n > 1 else "v1"
-            if impl == "cuda" and sdtype != torch.float32 and not refined:
-                raise ValueError("apply_impl='cuda' computes in float32; for a float64 solve "
-                                 "use use_iterative_refinement=True (float32 inner CG through "
-                                 "the fused apply, float64 residual) or apply_impl='v1'")
             # "v1-fused" runs the "v1" operator: the JAX package rebuilds the
             # coefficients inside each apply to save memory, with the same numbers
-            sys_ = System(state, orig_res, levels, impl, labels, vel_kinds, regular_kinds,
-                          res_per_level, active, v1_apply, v1_apply, rhs, guess, diag,
-                          blocks=blocks, mass=mass, mask=mask, edge_kinds=edge_kinds,
+            sys_ = System(state, orig_res, levels, route.impl, labels, vel_kinds,
+                          regular_kinds, res_per_level, active, v1_apply, v1_apply, rhs, guess,
+                          diag, blocks=blocks, mass=mass, mask=mask, edge_kinds=edge_kinds,
                           center_kinds=center_kinds)
-            if impl == "cuda" and mesh_n > 1:
+            if route.sharded:
                 sys_.apply_A = None   # parallel/shard_fused builds each rank's own
-            elif impl == "cuda":
+            elif route.impl == "cuda":
                 topo = Topology() if topology is None else topology
                 topo.fill(res_per_level, bboxes, device)
                 frame, canons = fused_apply.build_frame_data(
@@ -356,27 +384,23 @@ def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig()
     at each stage) and the seconds of the spans inside the stages
     (``utils/trace.py``, which names them).  ``topology``: see
     :func:`build_system`."""
-    sharded = False
-    if mesh is not None:
-        if mesh_axis != mesh.axis_name:
-            raise ValueError(f"mesh axis {mesh_axis!r}, the mesh's is {mesh.axis_name!r}")
-        device = mesh.device
-        sdtype = config.dtype or state.viscosity.dtype
-        sharded = (mesh.size > 1 and config.apply_impl in ("cuda", "auto")
-                   and sdtype == torch.float32 and not config.use_iterative_refinement)
-        if sharded and (bboxes is not None or topology is not None):
-            raise ValueError("a sharded solve runs whole local boxes: no bboxes or topology")
-    device = torch.device(device)
+    device = torch.device(device if mesh is None else mesh.device)
+    route = _route(config, config.dtype or state.viscosity.dtype, device,
+                   1 if mesh is None else mesh.size)
+    if mesh is not None and mesh_axis != mesh.axis_name:
+        raise ValueError(f"mesh axis {mesh_axis!r}, the mesh's is {mesh.axis_name!r}")
+    if route.sharded and (bboxes is not None or topology is not None):
+        raise ValueError("a sharded solve runs whole local boxes: no bboxes or topology")
     with trace.tracing(stage_times, device):
         sys_ = build_system(state, dt, config, device=device, face_weights=face_weights,
                             bboxes=bboxes, pad_levels=pad_levels, stage_times=stage_times,
-                            topology=topology, mesh_n=mesh.size if sharded else 1)
+                            topology=topology, mesh_n=mesh.size if route.sharded else 1)
         state, levels = sys_.state, sys_.levels
         cg_options = dict(cheb_degree=config.cheb_degree, cancel_poll=config.cancel_poll_iters)
 
         with trace.stage("solve"):
-            if config.use_iterative_refinement:
-                if sys_.impl == "cuda":
+            if route.refined:
+                if route.impl == "cuda":
                     # the inner CG on the canonical grids, through the fused apply
                     apply_A32 = sys_.apply_A
                     canonical = dict(embed_tree=sys_.embed_tree, crop_tree=sys_.crop_tree)
@@ -390,20 +414,16 @@ def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig()
                 solution, iters, rel, applies = operator.pcg_refined(
                     sys_.apply_v1, apply_A32, sys_.rhs, sys_.guess, sys_.diag, config.tolerance,
                     config.max_iterations, **canonical)
-            elif sharded:
+            elif route.sharded:
                 from .parallel import shard_fused
 
-                f32 = torch.float32
                 we, wc = shard_fused.stress_weights(sys_.blocks, levels)
                 solution, iters, rel, applies = shard_fused.sharded_fused_pcg(
                     mesh, sys_.vel_kinds, sys_.edge_kinds, sys_.center_kinds, we, wc,
-                    sys_.mass, sys_.active,
-                    {k: v.to(f32) for k, v in sys_.rhs.items()},
-                    {k: v.to(f32) for k, v in sys_.guess.items()},
-                    {k: v.to(f32) for k, v in sys_.diag.items()}, sys_.res_per_level, state.dx,
-                    config.use_enhanced_gradients, config.tolerance, config.max_iterations,
-                    cheb_degree=config.cheb_degree)
-            elif sys_.impl == "cuda":
+                    sys_.mass, sys_.active, sys_.rhs, sys_.guess, sys_.diag,
+                    sys_.res_per_level, state.dx, config.use_enhanced_gradients,
+                    config.tolerance, config.max_iterations, cheb_degree=config.cheb_degree)
+            elif route.impl == "cuda":
                 sol_c, iters, rel, applies = operator.pcg_flat(
                     sys_.apply_A, sys_.embed_tree(sys_.rhs), sys_.embed_tree(sys_.guess),
                     sys_.embed_tree(sys_.diag, fill=1.0), config.tolerance, config.max_iterations,
@@ -428,13 +448,6 @@ def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig()
                     v[tuple(slice(0, orig[d] + (1 if d == a else 0)) for d in range(3))]
                     for a, v in enumerate(new_velocity)]
 
-        if config.use_iterative_refinement:
-            path = "refined"
-        elif sys_.impl == "cuda":
-            path = "cuda" if device.type == "cuda" else "cuda-plain"
-            path += "-sharded" if sharded else ""
-        else:
-            path = sys_.impl
         # everything the host reads back comes in one transfer (float64 holds
         # the counts exactly)
         parts = [torch.as_tensor(rel, device=device).reshape(1),
@@ -454,7 +467,7 @@ def solve_viscosity(state: FluidState, dt, config: SolverConfig = SolverConfig()
         octree_dofs=int(packed[1]),
         regular_dofs=int(packed[2]),
         active_cells=[int(c) for c in packed[3:3 + levels]],
-        solve_path=path,
+        solve_path=route.path,
         applies=int(applies),
     )
     if probe_levels is not None:

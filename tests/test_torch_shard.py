@@ -313,6 +313,18 @@ def test_solve_collective_counts_pinned(two_rank_solves):
                 "allreduces": 3 + 3 * st["iterations"] + extra, "gathers": 2}, (key, r["rank"])
 
 
+@pytest.mark.parametrize("key", ["cuda", "cheb"])
+def test_sharded_cg_opens_cg_apply_per_apply(two_rank_solves, key):
+    """The sharded CG runs through operator.pcg_flat's flat operator: on
+    each rank one ``cg.apply`` span per apply (the lam_max estimate's
+    included), one ``solve`` stage, and the CG's loop spans."""
+    for r in two_rank_solves[key]:
+        st, spans = r["stats"], r["spans"]
+        assert spans["cg.apply"] == st["applies"], (key, r["rank"], spans)
+        assert spans["solve"] == 1 and spans["cg.precond"] == st["iterations"]
+        assert spans["cg.converged"] == st["iterations"] + 1
+
+
 def test_chebyshev_on_two_ranks_matches_single_device(two_rank_solves):
     s = two_rank_solves
     got, want = s["cheb"][0], s["single"]["cheb"]
